@@ -1,0 +1,42 @@
+"""Batched Metropolis MCMC: chain state, the plain engine, the move kernel."""
+
+from flowstate_tpu_torch.mcmc.cuda_metropolis import (
+    run_moves_auto, run_moves_kernel, run_moves_plain, run_production_kernel,
+)
+from flowstate_tpu_torch.mcmc.initialise import (
+    init_alternating_wells,
+    initialise_fcc,
+    initialise_low_left,
+    initialise_low_right,
+)
+from flowstate_tpu_torch.mcmc.metropolis import (
+    Observables,
+    adjust_displacement,
+    apply_move,
+    draw_tables,
+    run_equilibration,
+    run_moves,
+    run_production_with,
+    sample_observables,
+)
+from flowstate_tpu_torch.mcmc.observables import (
+    acceptance_fraction,
+    check_equilibration,
+    ensemble_acceptance,
+)
+from flowstate_tpu_torch.mcmc.state import (
+    ChainState, chain_state_from_numpy, init_chain_state, resync_energy,
+)
+
+__all__ = [
+    "ChainState", "init_chain_state", "chain_state_from_numpy",
+    "resync_energy",
+    "apply_move", "draw_tables", "run_moves", "adjust_displacement",
+    "Observables", "sample_observables", "run_production_with",
+    "run_equilibration",
+    "run_moves_kernel", "run_moves_plain", "run_moves_auto",
+    "run_production_kernel",
+    "init_alternating_wells", "initialise_fcc", "initialise_low_left",
+    "initialise_low_right",
+    "check_equilibration", "acceptance_fraction", "ensemble_acceptance",
+]

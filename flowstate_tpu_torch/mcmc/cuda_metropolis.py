@@ -1,0 +1,193 @@
+"""The Metropolis move loop as a hand-written CUDA kernel, and its plain
+PyTorch version.
+
+Port of ``flowstate_tpu/mcmc/pallas_metropolis.py``: ``run_moves_kernel``
+is the counterpart of ``run_moves_pallas`` and launches
+``csrc/metropolis_moves.cu`` (which replaces ``_move_kernel``);
+``run_production_kernel`` of ``run_production_pallas``; ``run_moves_auto``
+of ``run_moves_auto``.  ``run_moves_plain`` is the kernel's plain version,
+with the same contract: state (and optional tables) in, state out, the
+virial NaN until ``resync_energy``.
+
+``run_moves_auto`` sends a CUDA tensor to the kernel and a CPU tensor to
+the plain version; ``run_moves_kernel`` raises on anything it does not
+take.  ``LAUNCHES`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from flowstate_tpu_torch.mcmc import metropolis
+from flowstate_tpu_torch.mcmc.metropolis import Observables, Tables
+from flowstate_tpu_torch.mcmc.state import ChainState, resync_energy
+from flowstate_tpu_torch.ops.pair_energy import SystemSpec
+from flowstate_tpu_torch.ops.potentials import well_centers
+
+MAX_PARTICLES = 1024  # as the Pallas kernel; the entry point refuses more
+LAUNCHES = 0          # kernel launches in this process
+
+
+class _MoveParams(ctypes.Structure):
+    """Mirror of ``MoveParams`` in ``csrc/metropolis_moves.cu``."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("num_chains", "n", "num_moves", "fast_math", "num_wells")] + [
+        ("seed", ctypes.c_uint), ("calls", ctypes.c_uint)] + [
+        (name, ctypes.c_float) for name in
+        ("beta", "lx", "ly", "inv_lx", "inv_ly", "r_cut2", "hc2", "sigma2",
+         "eps4", "shift", "wx0", "wy0", "wx1", "wy1", "v00", "v01", "r0", "k")]
+
+
+def _entry_point():
+    from flowstate_tpu_torch.kernels import build
+
+    fn = build.build().lib.flowstate_metropolis_moves
+    fn.argtypes = [ctypes.POINTER(_MoveParams)] + [ctypes.c_void_p] * 9
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _params(spec: SystemSpec, beta: float, num_chains: int, num_moves: int,
+            seed: int, calls: int, fast_math: bool) -> _MoveParams:
+    lx, ly = spec.box.size_x, spec.box.size_y
+    r_cut2 = spec.cutoff * spec.cutoff
+    sr6_cut = (spec.sigma ** 2 / r_cut2) ** 3
+    centers = well_centers(lx, ly, 2)
+    v0 = list(spec.V0_list) + [0.0] * 2
+    return _MoveParams(
+        num_chains=num_chains, n=spec.num_particles, num_moves=num_moves,
+        fast_math=int(fast_math), num_wells=spec.num_wells,
+        seed=seed & 0xFFFFFFFF, calls=calls & 0xFFFFFFFF,
+        beta=beta, lx=lx, ly=ly, inv_lx=1.0 / lx, inv_ly=1.0 / ly,
+        r_cut2=r_cut2, hc2=spec.hard_core * spec.hard_core,
+        sigma2=spec.sigma ** 2, eps4=4.0 * spec.epsilon,
+        shift=4.0 * spec.epsilon * (sr6_cut * sr6_cut - sr6_cut),
+        wx0=centers[0][0], wy0=centers[0][1],
+        wx1=centers[1][0], wy1=centers[1][1],
+        v00=v0[0], v01=v0[1], r0=spec.r0, k=spec.k)
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, positions on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_tables(spec: SystemSpec, c: int, num_moves: int, device,
+                  tables: Optional[Tables],
+                  margin_log: Optional[torch.Tensor]) -> None:
+    if tables is not None:
+        p_tab, d_tab, u_tab = tables
+        _check("p_tab", p_tab, (c, num_moves), torch.int32, device)
+        _check("d_tab", d_tab, (c, num_moves, 2), torch.float32, device)
+        _check("u_tab", u_tab, (c, num_moves), torch.float32, device)
+        if p_tab.numel() and bool(((p_tab < 0)
+                                   | (p_tab >= spec.num_particles)).any()):
+            raise ValueError("p_tab holds particle indices outside [0, N)")
+    if margin_log is not None:
+        _check("margin_log", margin_log, (c, num_moves), torch.float32, device)
+
+
+def run_moves_kernel(spec: SystemSpec, beta: float, state: ChainState,
+                     num_moves: int, tables: Optional[Tables] = None,
+                     margin_log: Optional[torch.Tensor] = None,
+                     fast_math: bool = False) -> ChainState:
+    """Advance every chain by ``num_moves`` moves in one kernel launch.
+
+    The randoms come from Philox keyed on ``(state.seed, chain)`` with
+    counter ``(move, state.calls)``, or from ``tables`` =
+    ``(p_tab, d_tab, u_tab)`` as ``metropolis.draw_tables`` makes them.
+    ``margin_log`` (C, T) float32, if given, receives each move's
+    ``exp(-beta dE) - u``.  The returned virial is NaN (not tracked);
+    ``calls`` advances by one.
+    """
+    global LAUNCHES
+    pos = state.positions
+    if pos.device.type != "cuda":
+        raise ValueError(f"run_moves_kernel takes CUDA tensors, got {pos.device}"
+                         "; run_moves_auto sends CPU tensors to run_moves_plain")
+    n = spec.num_particles
+    if n > MAX_PARTICLES:
+        raise ValueError(f"the move kernel supports up to {MAX_PARTICLES} "
+                         f"particles (got {n})")
+    if num_moves < 0:
+        raise ValueError(f"num_moves must be >= 0, got {num_moves}")
+    c = pos.shape[0]
+    dev = pos.device
+    _check("positions", pos, (c, n, 2), torch.float32, dev)
+    _check("energy", state.energy, (c,), torch.float32, dev)
+    _check("max_disp", state.max_disp, (c,), torch.float32, dev)
+    _check("accepts", state.accepts, (c,), torch.int32, dev)
+    _check_tables(spec, c, num_moves, dev, tables, margin_log)
+
+    planes = pos.permute(1, 2, 0).contiguous()          # (N, 2, C)
+    energy = state.energy.clone()
+    accepts = torch.empty(c, dtype=torch.int32, device=dev)
+    params = _params(spec, beta, c, num_moves, state.seed, state.calls,
+                     fast_math)
+    p_tab, d_tab, u_tab = tables if tables is not None else (None,) * 3
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    fn = _entry_point()
+    with torch.cuda.device(dev):
+        rc = fn(ctypes.byref(params), ptr(planes), ptr(energy),
+                ptr(state.max_disp), ptr(accepts), ptr(p_tab), ptr(d_tab),
+                ptr(u_tab), ptr(margin_log),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"metropolis_moves launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return state.replace(
+        positions=planes.permute(2, 0, 1).contiguous(),
+        energy=energy,
+        virial=torch.full_like(state.virial, float("nan")),
+        attempts=state.attempts + num_moves,
+        accepts=state.accepts + accepts,
+        calls=state.calls + 1,
+    )
+
+
+def run_moves_plain(spec: SystemSpec, beta: float, state: ChainState,
+                    num_moves: int, tables: Optional[Tables] = None,
+                    margin_log: Optional[torch.Tensor] = None) -> ChainState:
+    """The kernel's plain PyTorch version (``metropolis.run_moves``), with
+    the kernel's contract: the returned virial is NaN."""
+    c = state.positions.shape[0]
+    _check_tables(spec, c, num_moves, state.device, tables, margin_log)
+    out = metropolis.run_moves(spec, beta, state, num_moves, tables,
+                               margin_log)
+    return out.replace(virial=torch.full_like(out.virial, float("nan")))
+
+
+def run_moves_auto(spec: SystemSpec, beta: float, state: ChainState,
+                   num_moves: int) -> ChainState:
+    """The kernel for a CUDA state, the plain version for a CPU state."""
+    if state.device.type == "cuda":
+        return run_moves_kernel(spec, beta, state, num_moves)
+    if state.device.type == "cpu":
+        return run_moves_plain(spec, beta, state, num_moves)
+    raise ValueError(f"no move engine for device {state.device}")
+
+
+def run_production_kernel(spec: SystemSpec, beta: float, state: ChainState,
+                          num_samples: int, sampling_frequency: int,
+                          start_cycle: int = 0
+                          ) -> Tuple[ChainState, Observables]:
+    """Production: per block, ``sampling_frequency`` moves through
+    ``run_moves_auto``, then ``resync_energy`` (exact energy, finite
+    virial), then one observable sample.  Leaves come back (C, T, ...)."""
+    def move_fn(s: ChainState, num_moves: int) -> ChainState:
+        return resync_energy(spec, run_moves_auto(spec, beta, s, num_moves))
+
+    return metropolis.run_production_with(spec, beta, state, num_samples,
+                                          sampling_frequency, move_fn,
+                                          start_cycle)
