@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA move kernel from ``flowstate_tpu_torch/csrc``,
-holds it against its plain PyTorch version, checks its statistics and the
-exact N=1 free energy, runs the MCMC-only experiment at the reference preset
-through it, and times it.  Each phase prints one line with its name, PASS
-and its numbers; any failure raises and the script exits non-zero.  The
-line before the last is a JSON record of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
-non-zero at once and prints no result.
+Builds the hand-written CUDA kernels from ``flowstate_tpu_torch/csrc``
+(the Metropolis move kernel K1 and the pair-energy kernel K2, one ``nvcc``
+each, in parallel), holds each against its plain PyTorch version, checks
+K1's statistics and the exact N=1 free energy, runs the MCMC-only
+experiment at the reference preset through both kernels, times them, and
+runs the NVT single-run CLI at N=1024 through both.  Each phase prints one
+line with its name, PASS and its numbers; any failure raises and the
+script exits non-zero.  The line before the last is a JSON record of the
+kernels; the last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it exits non-zero at once and prints no result.
 """
 
 from __future__ import annotations
@@ -30,6 +32,26 @@ DEVICE = "cuda"
 NEAR_TIE = 1e-5
 POS_ATOL = 1e-5
 E_RTOL, E_ATOL = 1e-5, 1e-3
+# K2 against its plain version: |d| <= PAIR_RTOL * (sum of |terms|) +
+# PAIR_ATOL.  The two sum up to 8.4e6 pair terms per chain in different
+# orders (a thread adds up to 256 terms in sequence, then a fixed tree;
+# PyTorch reduces in its own blocks), and round the LJ powers through a
+# division of r^2 against a sqrt: float32 rounding of order 1e-7 per term
+# and at most ~1.5e-5 of the sum of magnitudes for 256 sequential adds.
+PAIR_RTOL, PAIR_ATOL = 1e-5, 1e-4
+
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# fp32 operations (an FMA counts two), read off the kernels' sources:
+# K1, metropolis_moves.cu: a pair_term (two min images 10, r^2 3, max 1,
+# division 1, powers 2, energy 4, sum 1), a well_term (two min images 10,
+# r^2 3, sqrt 1, tanh argument 2, tanh 1, transition 2, depth 2, sum 1), a
+# proposal with its wrap (14) and the decision (dE, -beta dE, exp, e += dE)
+K1_PAIR_FLOPS, K1_WELL_FLOPS, K1_MOVE_FLOPS = 22, 22, 18
+# K2, pair_energy.cu: a pair (two min images 10, r^2 3, max 1, division 1,
+# sr6 2, sr12 1, energy 4, virial 4) and a particle's well term (22)
+K2_PAIR_FLOPS, K2_WELL_FLOPS = 26, 22
 
 
 def phase(name: str, **numbers) -> None:
@@ -59,6 +81,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    """The least time the card could take, in ms, and what bounds it:
+    ``flops`` at the fp32 peak against ``nbytes`` at the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def k1_bound(c: int, n: int, num_wells: int, moves: int) -> tuple:
+    """K1's bound for ``moves`` moves of ``c`` chains of ``n`` particles:
+    each move evaluates the moved particle's old and new position against
+    the other n - 1 and the wells; the chains' positions, energies, max
+    displacements and accept counts are read and written once."""
+    per_move = (2 * (n - 1) * K1_PAIR_FLOPS + 2 * num_wells * K1_WELL_FLOPS
+                + K1_MOVE_FLOPS)
+    nbytes = c * (2 * n * 2 * 4 + 4 * 4)
+    return bound_ms(c * moves * per_move, nbytes)
+
+
+def k2_bound(c: int, n: int, num_wells: int) -> tuple:
+    """K2's bound for a (c, n, 2) batch: every pair i < j once and every
+    particle's wells; positions read once, (energy, virial) written once."""
+    flops = c * (n * (n - 1) // 2 * K2_PAIR_FLOPS
+                 + n * num_wells * K2_WELL_FLOPS)
+    return bound_ms(flops, c * (n * 2 * 4 + 2 * 4))
+
+
 def reference_spec(n: int = 3):
     from flowstate_tpu_torch.ops import Box, SystemSpec
 
@@ -84,9 +133,12 @@ def phase_build() -> float:
 
     res = build.build()
     for line in res.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
-    phase("2 build", seconds=f"{res.seconds:.2f}", library=res.path)
+    require(set(res.libs) == {"metropolis_moves", "pair_energy"},
+            f"built {sorted(res.libs)}")
+    phase("2 build", seconds=f"{res.seconds:.2f}",
+          libraries=",".join(sorted(res.paths.values())))
     return res.seconds
 
 
@@ -168,6 +220,13 @@ def phase_pathwise() -> float:
         spec128, torch.as_tensor(np.broadcast_to(pos, (256, 128, 2)).copy(),
                                  device=DEVICE), 4, 0.3)
     errs.append(compare_pathwise(spec128, s128, 256, 14, "N=128 pure LJ"))
+    # the single-run CLI's size: N=1024, 128 chains
+    pos, box = initialise_fcc(1024, 0.3, 1.0)
+    spec1024 = SystemSpec.create(1024, box, num_wells=0)
+    s1024 = init_chain_state(
+        spec1024, torch.as_tensor(np.broadcast_to(pos, (128, 1024, 2)).copy(),
+                                  device=DEVICE), 5, 1.0)
+    errs.append(compare_pathwise(spec1024, s1024, 64, 15, "N=1024 pure LJ"))
     err = max(errs)
 
     # Philox: the same state and seed reproduce bit for bit; the next
@@ -188,6 +247,118 @@ def phase_pathwise() -> float:
             "Philox stream replayed across launches or seeds")
     phase("3 kernel vs plain, pathwise", max_abs_err=f"{err:.3g}",
           near_tie=NEAR_TIE, pos_atol=POS_ATOL, e_rtol=E_RTOL, e_atol=E_ATOL)
+    return err
+
+
+def jittered_lattices(n: int, c: int, seed: int, rho: float = 0.3):
+    """A (c, n, 2) float32 batch on the card: the ``initialise_fcc``
+    lattice jittered by +-0.05 per chain (numpy seed), wrapped; and its box."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.mcmc import initialise_fcc
+
+    lattice, box = initialise_fcc(n, rho, 1.0)
+    rng = np.random.default_rng(seed)
+    pos = lattice + rng.uniform(-0.05, 0.05, size=(c, n, 2))
+    pos = np.stack([pos[..., 0] % box.size_x, pos[..., 1] % box.size_y], -1)
+    return torch.as_tensor(pos, dtype=torch.float32, device=DEVICE), box
+
+
+def pair_magnitudes(spec, positions):
+    """Per chain: the sum of |pair energy| plus |well energy|, and of
+    |pair virial|, over the pairs i < j: the scale of K2's rounding."""
+    import torch
+
+    from flowstate_tpu_torch.ops import lennard_jones_energy_virial, min_image
+    from flowstate_tpu_torch.ops.box import squared_norm
+    from flowstate_tpu_torch.ops.pair_energy import _well_energy
+
+    n = spec.num_particles
+    d = min_image(positions[:, :, None, :] - positions[:, None, :, :],
+                  spec.box)
+    r = torch.sqrt(torch.clamp(squared_norm(d), min=1e-24))
+    e, w = lennard_jones_energy_virial(r, spec.epsilon, spec.sigma,
+                                       spec.cutoff)
+    upper = torch.triu(torch.ones(n, n, dtype=torch.bool,
+                                  device=positions.device), diagonal=1)
+    zero = torch.zeros((), device=positions.device)
+    e_mag = torch.where(upper, e.abs(), zero).sum((1, 2)) + _well_energy(
+        spec, positions).abs().sum(-1)
+    return e_mag, torch.where(upper, w.abs(), zero).sum((1, 2))
+
+
+def compare_pair(spec, positions, label: str, overlaps=()) -> float:
+    """K2 and its plain version on one batch: +inf in exactly the chains
+    ``overlaps`` (in both), finite values within the stated tolerance
+    elsewhere, and the same bits from a second kernel call.  Returns the
+    largest |difference| over the finite energies and virials."""
+    import torch
+
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+
+    e_k, w_k = cp.total_energy_virial_kernel(spec, positions)
+    e_k2, w_k2 = cp.total_energy_virial_kernel(spec, positions)
+    e_p, w_p = cp.total_energy_virial_plain(spec, positions)
+    torch.cuda.synchronize()
+    require(torch.equal(e_k, e_k2) and torch.equal(w_k, w_k2),
+            f"{label}: two kernel calls differ")
+    inf_k, inf_p = torch.isinf(e_k), torch.isinf(e_p)
+    got = torch.nonzero(inf_k).flatten().tolist()
+    require(got == list(overlaps) and torch.equal(inf_k, inf_p)
+            and torch.equal(inf_k, torch.isinf(w_k)),
+            f"{label}: overlap chains: kernel {got[:8]} plain "
+            f"{torch.nonzero(inf_p).flatten().tolist()[:8]}, expected "
+            f"{list(overlaps)}")
+    require(bool((e_k[inf_k] > 0).all() and (w_k[inf_k] > 0).all()),
+            f"{label}: an overlap is not +inf")
+    ok = ~inf_k
+    require(bool(torch.isfinite(e_k[ok]).all()
+                 and torch.isfinite(w_k[ok]).all()),
+            f"{label}: non-finite energy without an overlap")
+    e_mag, w_mag = pair_magnitudes(spec, positions)
+    de = (e_k - e_p)[ok].abs()
+    dw = (w_k - w_p)[ok].abs()
+    require(bool((de <= PAIR_RTOL * e_mag[ok] + PAIR_ATOL).all()),
+            f"{label}: energies differ by {float(de.max())}")
+    require(bool((dw <= PAIR_RTOL * w_mag[ok] + PAIR_ATOL).all()),
+            f"{label}: virials differ by {float(dw.max())}")
+    err = max(float(de.max()), float(dw.max()))
+    print(f"  {label}: C={positions.shape[0]} N={spec.num_particles} "
+          f"overlap_chains={int(inf_k.sum())} e_err={float(de.max()):.3g} "
+          f"w_err={float(dw.max()):.3g} "
+          f"e_rel={float((de / e_mag[ok]).max()):.3g}", flush=True)
+    return err
+
+
+def phase_pair_kernel() -> float:
+    """K2 against its plain version at the shapes the paths give it and up
+    to N=4096, an overlap batch, and bit-identical repeats."""
+    import torch
+
+    from flowstate_tpu_torch.mcmc import init_alternating_wells
+    from flowstate_tpu_torch.ops import SystemSpec
+
+    errs = []
+    pos, _ = init_alternating_wells(100, 3, 0.03)
+    errs.append(compare_pair(reference_spec(3),
+                             torch.as_tensor(pos, dtype=torch.float32,
+                                             device=DEVICE),
+                             "main path (100, 3), wells"))
+    for c, n in ((64, 300), (32, 1000), (128, 1024), (4, 4096)):
+        pos, box = jittered_lattices(n, c, seed=n)
+        errs.append(compare_pair(SystemSpec.create(n, box, num_wells=0), pos,
+                                 f"({c}, {n})"))
+    pos, box = jittered_lattices(300, 8, seed=1)
+    for chain in (2, 5):
+        pos[chain, 211] = pos[chain, 17] + 0.1
+    errs.append(compare_pair(
+        SystemSpec.create(300, box, num_wells=2, V0_list=(-10.0, -10.5),
+                          r0=1.2, k=15.0),
+        pos, "(8, 300), overlaps in 2, 5", overlaps=(2, 5)))
+    err = max(errs)
+    phase("3b pair kernel vs plain", max_abs_err=f"{err:.3g}",
+          rtol_of_magnitudes=PAIR_RTOL, atol=PAIR_ATOL)
     return err
 
 
@@ -289,6 +460,7 @@ def phase_main_path(total_steps: int = 10_000_000) -> dict:
 
     from flowstate_tpu_torch.experiments import mcmc_only
     from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.ops import cuda_pair as cp
     from flowstate_tpu_torch.utils.config import mcmc_only_config
 
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out:
@@ -297,13 +469,20 @@ def phase_main_path(total_steps: int = 10_000_000) -> dict:
         eq_blocks, eq_rest = divmod(config.equilibration_steps,
                                     config.adjusting_frequency)
         expected = eq_blocks + (1 if eq_rest else 0) + samples
+        # K2: the initial energies, then one resync per production block;
+        # two launches (tile pass, epilogue) each
+        expected_k2 = 2 * (1 + samples)
         cm.LAUNCHES = 0
+        cp.LAUNCHES = 0
         result = mcmc_only.run(config, total_steps, device=DEVICE)
         torch.cuda.synchronize()
-        launches = cm.LAUNCHES
+        launches, launches_k2 = cm.LAUNCHES, cp.LAUNCHES
         require(launches == expected,
-                f"main path launched the kernel {launches} times, "
+                f"main path launched the move kernel {launches} times, "
                 f"schedule implies {expected}")
+        require(launches_k2 == expected_k2,
+                f"main path launched the pair kernel {launches_k2} times, "
+                f"schedule implies {expected_k2}")
         d = result["directory"]
         needed = ["params.json", "experiment.log", "metrics.jsonl",
                   os.path.join(out, "evidence", "chip_smoke_data.json")]
@@ -322,10 +501,11 @@ def phase_main_path(total_steps: int = 10_000_000) -> dict:
     require(0.3 < acc < 0.7, f"production acceptance {acc}")
     require(abs(e_pp + 10.7) < 0.2, f"energy per particle {e_pp}")
     phase("6 main path", launches=launches, expected=expected,
+          launches_k2=launches_k2, expected_k2=expected_k2,
           acceptance=f"{acc:.4f}", e_per_particle=f"{e_pp:.4f}",
           delta_f=f"{result['delta_f_mean']:.4f}+-{result['delta_f_sem']:.4f}",
           wall_s=f"{result['wall_s']:.2f}")
-    return {"launches": launches}
+    return {"launches": launches, "launches_k2": launches_k2}
 
 
 def phase_timing(card: str, c: int = 16384, moves: int = 1000) -> dict:
@@ -365,11 +545,207 @@ def phase_timing(card: str, c: int = 16384, moves: int = 1000) -> dict:
     torch.cuda.synchronize()
     p_rate = 2 * c * moves / (time.perf_counter() - t0)
     require(np.isfinite(k_rate) and np.isfinite(p_rate), "timing failed")
+    bound, bound_by = k1_bound(100, 3, 2, 150)
+    big_bound, big_by = k1_bound(c, 3, 2, moves)
     phase("7 timing", card=f"'{card}'",
           main_path_launch_ms=f"{ms:.4f}", main_path_plain_ms=f"{plain_ms:.2f}",
+          main_path_bound_ms=f"{bound:.3g}", bound_by=bound_by,
           kernel_moves_per_s=f"{k_rate:.6g}", plain_moves_per_s=f"{p_rate:.6g}",
-          chains=c, moves_per_launch=moves)
-    return {"ms": ms, "plain_ms": plain_ms}
+          chains=c, moves_per_launch=moves,
+          launch_ms=f"{c * moves / k_rate * 1e3:.4f}",
+          launch_bound_ms=f"{big_bound:.3g}", launch_bound_by=big_by)
+    k1 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+          "bound_by": bound_by}
+    return {"k1": k1, "k2": time_pair_kernel(card),
+            "block": time_production_block(spec, s100)}
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds of device time per call of ``fn``: the durations of
+    the kernels it launches, summed over ``reps`` profiled calls after one
+    warm-up call (0 if the profiler records no device kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / reps
+
+
+def time_pair_kernel(card: str) -> dict:
+    """K2 and its plain version at the main path's shape (100 chains, N=3,
+    wells) and at the single-run CLI's (128, 1024): the time of a call by
+    CUDA events over back-to-back calls, and the device time of its
+    kernels by the profiler."""
+    import torch
+
+    from flowstate_tpu_torch.mcmc import init_alternating_wells
+    from flowstate_tpu_torch.ops import SystemSpec
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+
+    pos3, _ = init_alternating_wells(100, 3, 0.03)
+    pos3 = torch.as_tensor(pos3, dtype=torch.float32, device=DEVICE)
+    spec3 = reference_spec(3)
+    pos1k, box = jittered_lattices(1024, 128, seed=2)
+    spec1k = SystemSpec.create(1024, box, num_wells=0)
+    out = {}
+    for label, spec, pos, reps, plain_reps in (
+            ("main_path", spec3, pos3, 1000, 100),
+            ("n1024", spec1k, pos1k, 100, 5)):
+        k_ms = cuda_ms(lambda: cp.total_energy_virial_kernel(spec, pos), reps)
+        p_ms = cuda_ms(lambda: cp.total_energy_virial_plain(spec, pos),
+                       plain_reps)
+        b_ms, b_by = k2_bound(pos.shape[0], spec.num_particles,
+                              spec.num_wells)
+        out[label] = {
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "device_ms": device_ms(
+                lambda: cp.total_energy_virial_kernel(spec, pos), 20),
+            "plain_device_ms": device_ms(
+                lambda: cp.total_energy_virial_plain(spec, pos), 3)}
+    phase("7b pair kernel timing", card=f"'{card}'",
+          **{f"{k}_{f}": (f"{v[f]:.4g}" if f != "bound_by" else v[f])
+             for k, v in out.items() for f in v})
+    return out
+
+
+def time_production_block(spec, state, blocks: int = 100) -> dict:
+    """The main path's production block (150 moves of 100 chains through
+    K1, a resync through K2, one observable sample): host ms per block over
+    ``blocks`` blocks, then the card's busy share of a profiled window of
+    as many blocks (the sum of its kernels' durations over the window's
+    wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+
+    def run(s):
+        s, _ = cm.run_production_kernel(spec, 1.0, s, blocks, 150)
+        torch.cuda.synchronize()
+        return s
+
+    state = run(state)                          # warm
+    t0 = time.perf_counter()
+    state = run(state)
+    block_ms = (time.perf_counter() - t0) * 1e3 / blocks
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(state)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    for name, us in top:
+        print(f"  device {us / blocks:9.2f} us/block  {name[:70]}", flush=True)
+    idle = 1.0 - busy_us / wall_us if kernels else float("nan")
+    phase("7c production block", block_ms=f"{block_ms:.4f}",
+          profiled_wall_ms_per_block=f"{wall_us / 1e3 / blocks:.4f}",
+          device_busy_ms_per_block=f"{busy_us / 1e3 / blocks:.4f}",
+          idle_share=(f"{idle:.3f}" if kernels else "not_measured"),
+          device_kernels_per_block=f"{len(kernels) / blocks:.1f}")
+    return {"block_ms": block_ms, "idle_share": idle}
+
+
+def phase_single_run(card: str, num_chains: int = 128) -> dict:
+    """The NVT single-run CLI at N=1024, rho=0.3, T=1, no wells, fcc start,
+    through both kernels: launch counts against the schedule, finite
+    observables, a steady negative E/N over the second half, acceptance,
+    and the NPZ and CSV shapes."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.experiments import single_run
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+
+    n, eq, adjust, prod, every = 1024, 2000, 500, 8000, 200
+    samples = prod // every
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out:
+        argv = ["--temperature", "1.0", "--num_particles", str(n),
+                "--initial_rho", "0.3", "--num_wells", "0",
+                "--initialisation_type", "all",
+                "--num_chains", str(num_chains),
+                "--equilibration_steps", str(eq),
+                "--adjusting_frequency", str(adjust),
+                "--production_steps", str(prod),
+                "--sampling_frequency", str(every),
+                "--initial_max_displacement", "1.0",
+                "--output_path", out, "--experiment_id", "single_run",
+                "--seed", "0", "--device", DEVICE]
+        cm.LAUNCHES = 0
+        cp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        summary = single_run.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        k1, k2 = cm.LAUNCHES, cp.LAUNCHES
+        expected_k1 = eq // adjust + (1 if eq % adjust else 0) + samples
+        expected_k2 = 2 * (1 + samples)
+        require(k1 == expected_k1 and k2 == expected_k2,
+                f"single run launched K1 {k1} (expected {expected_k1}) and "
+                f"K2 {k2} (expected {expected_k2}) times")
+        d = os.path.join(out, "single_run")
+        configs = np.load(os.path.join(d, "production_configs.npz"))["configs"]
+        require(configs.shape == (num_chains, samples, n, 2),
+                f"NPZ configs {configs.shape}")
+        half = np.sqrt(n / 0.3) / 2
+        require(bool(np.all(np.abs(configs) <= half + 1e-4)),
+                "NPZ configs outside the centred box")
+        rows = np.genfromtxt(os.path.join(d, "sampled_data.csv"),
+                             delimiter=",", skip_header=1,
+                             usecols=(0, 1, 2, 3))
+        require(rows.shape == (samples, 4) and np.isfinite(rows).all(),
+                f"CSV rows {rows.shape} or not finite")
+        require(np.array_equal(rows[:, 0],
+                               eq + every * np.arange(1, samples + 1)),
+                "CSV cycle numbers")
+    second = rows[samples // 2:, 1]               # chain 0's E/N
+    q1 = second[: len(second) // 2].mean()
+    q2 = second[len(second) // 2:].mean()
+    acc = summary["acceptance_fraction"]
+    require(np.isfinite(summary["mean_energy_per_particle"])
+            and np.isfinite(summary["mean_pressure"]), "summary not finite")
+    require(bool((second < 0).all()), f"E/N not negative: {second}")
+    # steady: the two quarters of the second half within 10% of |E/N|
+    require(abs(q2 - q1) < 0.1 * abs(q1),
+            f"E/N drifts over the second half: {q1:.4f} -> {q2:.4f}")
+    require(0.2 < acc < 0.8, f"acceptance {acc}")
+
+    # K1 at this shape: one launch of `every` moves, against its bound
+    from flowstate_tpu_torch.mcmc import initialise_fcc
+    from flowstate_tpu_torch.mcmc.state import init_chain_state
+    from flowstate_tpu_torch.ops import SystemSpec
+
+    lattice, box = initialise_fcc(n, 0.3, 1.0)
+    spec = SystemSpec.create(n, box, num_wells=0)
+    s = init_chain_state(spec, torch.as_tensor(
+        np.broadcast_to(lattice, (num_chains, n, 2)).copy(), device=DEVICE),
+        0, float(summary["final_max_displacement"]))
+    k1_ms = cuda_ms(lambda: cm.run_moves_kernel(spec, 1.0, s, every), 3)
+    k1_bound_ms, k1_by = k1_bound(num_chains, n, 0, every)
+    phase("8 single run", card=f"'{card}'", n=n, chains=num_chains,
+          launches_k1=k1, expected_k1=expected_k1, launches_k2=k2,
+          expected_k2=expected_k2, acceptance=f"{acc:.4f}",
+          e_per_particle=f"{summary['mean_energy_per_particle']:.5f}",
+          e_chain0_quarters=f"{q1:.5f}/{q2:.5f}",
+          pressure=f"{summary['mean_pressure']:.5f}",
+          max_disp=f"{summary['final_max_displacement']:.4f}",
+          wall_s=f"{wall_s:.2f}", k1_launch_ms=f"{k1_ms:.3f}",
+          k1_launch_bound_ms=f"{k1_bound_ms:.4g}", k1_bound_by=k1_by,
+          moves_per_launch=every)
+    return {"wall_s": wall_s}
 
 
 def main() -> int:
@@ -385,11 +761,14 @@ def main() -> int:
     card = phase_device()
     phase_build()
     err = phase_pathwise()
+    err_k2 = phase_pair_kernel()
     phase_statistics()
     phase_exact_physics()
     main_path = phase_main_path()
     timing = phase_timing(card)
+    phase_single_run(card)
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
+    k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{
         "name": "metropolis_moves",
         "route": "cuda",
@@ -397,8 +776,23 @@ def main() -> int:
         "replaces": "flowstate_tpu/mcmc/pallas_metropolis.py:106",
         "launches": main_path["launches"],
         "max_abs_err": err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "pair_energy",
+        "route": "cuda",
+        "source": "flowstate_tpu_torch/csrc/pair_energy.cu",
+        "replaces": "flowstate_tpu/ops/pallas_pair.py:33",
+        "launches": main_path["launches_k2"],
+        "max_abs_err": err_k2,
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

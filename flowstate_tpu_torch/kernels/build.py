@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``flowstate_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first
-use, and loaded with ``ctypes``.  The library lands in
-``kernels/_build/<hash>/``, keyed by a hash of the sources and the flags,
+Every ``flowstate_tpu_torch/csrc/<name>.cu`` is compiled by its own
+``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
+interface, at first use, and loaded with ``ctypes``.  The compilers of all
+sources start together and run in parallel.  Each library lands in
+``kernels/_build/<hash>/``, keyed by a hash of its source and the flags,
 so an edited source builds anew and an unchanged one is reused.  Nothing
 is built when this module is imported.
 
@@ -20,22 +21,25 @@ import shutil
 import subprocess
 import tempfile
 import time
+from typing import Dict
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "kernels", "_build")
-LIB_NAME = "libflowstate_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class BuildResult:
-    """The loaded library, where it lies, the build seconds (0 if it was
-    already built) and the compiler's report."""
+    """The loaded libraries by source name (``"metropolis_moves"`` for
+    ``csrc/metropolis_moves.cu``), where they lie, the wall seconds of the
+    build (0 if every library was already built) and the compilers'
+    reports."""
 
-    def __init__(self, lib: ctypes.CDLL, path: str, seconds: float,
-                 log: str):
-        self.lib, self.path, self.seconds, self.log = lib, path, seconds, log
+    def __init__(self, libs: Dict[str, ctypes.CDLL], paths: Dict[str, str],
+                 seconds: float, log: str):
+        self.libs, self.paths, self.seconds, self.log = (libs, paths, seconds,
+                                                         log)
 
 
 _LOADED: BuildResult | None = None
@@ -61,47 +65,62 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built on the machine with the card")
 
 
-def _digest(srcs: list) -> str:
+def _name(src: str) -> str:
+    return os.path.splitext(os.path.basename(src))[0]
+
+
+def _library_path(src: str) -> str:
+    """Where the library of one source lies once built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as f:
-            h.update(f.read())
-    return h.hexdigest()[:16]
+    with open(src, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, h.hexdigest()[:16], f"lib{_name(src)}.so")
 
 
 def build() -> BuildResult:
-    """Compile (unless already built) and load the kernels' library."""
+    """Compile (unless already built) and load every kernel's library."""
     global _LOADED
     if _LOADED is not None:
         return _LOADED
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    out_dir = os.path.join(BUILD_DIR, _digest(srcs))
-    lib_path = os.path.join(out_dir, LIB_NAME)
-    seconds, log = 0.0, ""
-    if not os.path.exists(lib_path):
-        os.makedirs(out_dir, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    paths = {_name(s): _library_path(s) for s in srcs}
+    todo = [s for s in srcs if not os.path.exists(paths[_name(s)])]
+    nvcc = nvcc_path() if todo else None
+    t0 = time.perf_counter()
+    jobs = []
+    for src in todo:
+        path = paths[_name(src)]
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+        jobs.append((path, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for path, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
-        with open(os.path.join(out_dir, "build.log"), "w") as f:
-            f.write(log)
-    _LOADED = BuildResult(ctypes.CDLL(lib_path), lib_path, seconds, log)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+            continue
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
+        with open(os.path.join(os.path.dirname(path), "build.log"), "w") as f:
+            f.write(out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    seconds = time.perf_counter() - t0 if jobs else 0.0
+    _LOADED = BuildResult({name: ctypes.CDLL(p) for name, p in paths.items()},
+                          paths, seconds, "".join(logs))
     return _LOADED
 
 
 if __name__ == "__main__":
     res = build()
     print(res.log)
-    print(f"built {res.path} in {res.seconds:.1f} s")
+    for name, path in res.paths.items():
+        print(f"{name}: {path}")
+    print(f"built in {res.seconds:.1f} s")

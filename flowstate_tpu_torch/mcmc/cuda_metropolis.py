@@ -45,7 +45,7 @@ class _MoveParams(ctypes.Structure):
 def _entry_point():
     from flowstate_tpu_torch.kernels import build
 
-    fn = build.build().lib.flowstate_metropolis_moves
+    fn = build.build().libs["metropolis_moves"].flowstate_metropolis_moves
     fn.argtypes = [ctypes.POINTER(_MoveParams)] + [ctypes.c_void_p] * 9
     fn.restype = ctypes.c_int
     return fn
@@ -184,7 +184,8 @@ def run_production_kernel(spec: SystemSpec, beta: float, state: ChainState,
                           ) -> Tuple[ChainState, Observables]:
     """Production: per block, ``sampling_frequency`` moves through
     ``run_moves_auto``, then ``resync_energy`` (exact energy, finite
-    virial), then one observable sample.  Leaves come back (C, T, ...)."""
+    virial; on the card the pair-energy kernel), then one observable
+    sample.  Leaves come back (C, T, ...)."""
     def move_fn(s: ChainState, num_moves: int) -> ChainState:
         return resync_energy(spec, run_moves_auto(spec, beta, s, num_moves))
 

@@ -18,7 +18,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from flowstate_tpu_torch.ops.pair_energy import SystemSpec, total_energy_virial
+from flowstate_tpu_torch.ops.cuda_pair import (
+    total_energy_virial_kernel, total_energy_virial_plain,
+)
+from flowstate_tpu_torch.ops.pair_energy import SystemSpec
 
 TENSOR_FIELDS = ("positions", "energy", "virial", "max_disp", "attempts",
                  "accepts", "prev_attempts", "prev_accepts")
@@ -47,17 +50,14 @@ class ChainState:
 
 def batched_energy_virial(spec: SystemSpec, positions: torch.Tensor,
                           chunk_elems: int = 2 ** 28):
-    """Per-chain (energy, virial) of a (C, N, 2) batch, in chain chunks
-    small enough that the (chunk, N, N, 2) pair tensor holds at most
-    ``chunk_elems`` elements."""
-    c, n = positions.shape[0], positions.shape[1]
-    chunk = max(1, min(c, chunk_elems // max(n * n * 2, 1)))
-    if chunk >= c:
-        return total_energy_virial(spec, positions)
-    parts = [total_energy_virial(spec, positions[i:i + chunk])
-             for i in range(0, c, chunk)]
-    return (torch.cat([e for e, _ in parts]),
-            torch.cat([v for _, v in parts]))
+    """Per-chain (energy, virial) of a (C, N, 2) batch: the pair-energy
+    kernel for a CUDA batch, its plain version (in chain chunks of at most
+    ``chunk_elems`` pair-tensor elements) for a CPU batch."""
+    if positions.device.type == "cuda":
+        return total_energy_virial_kernel(spec, positions)
+    if positions.device.type == "cpu":
+        return total_energy_virial_plain(spec, positions, chunk_elems)
+    raise ValueError(f"no pair-energy engine for device {positions.device}")
 
 
 def init_chain_state(spec: SystemSpec, positions: torch.Tensor, seed: int,

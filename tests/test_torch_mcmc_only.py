@@ -159,6 +159,9 @@ def test_unported_samplers_name_their_roadmap_item(tmp_path):
 
 def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
     code = ("import sys, flowstate_tpu_torch.experiments.mcmc_only, "
+            "flowstate_tpu_torch.experiments.single_run, "
+            "flowstate_tpu_torch.analysis.plots, "
+            "flowstate_tpu_torch.ops.cuda_pair, "
             "flowstate_tpu_torch.kernels.build; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flowstate_tpu', 'matplotlib'}); "
