@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``flowstate_tpu_torch/csrc``
-(the Metropolis move kernel K1 and the pair-energy kernel K2, one ``nvcc``
-each, in parallel), holds each against its plain PyTorch version, checks
-K1's statistics and the exact N=1 free energy, runs the MCMC-only
-experiment at the reference preset through both kernels, times them, and
-runs the NVT single-run CLI at N=1024 through both.  Each phase prints one
-line with its name, PASS and its numbers; any failure raises and the
-script exits non-zero.  The line before the last is a JSON record of the
-kernels; the last line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA device it exits non-zero at once and prints no result.
+(the Metropolis move kernel K1, the pair-energy kernel K2 and the fp32
+issue-rate probe K3, one ``nvcc`` each, in parallel), holds each against
+its plain PyTorch version, checks K1's statistics and the exact N=1 free
+energy, runs the MCMC-only experiment at the reference preset through K1
+and K2, times them, runs the NVT single-run CLI at N=1024, reads the
+card's fp32 roof with K3, runs the N-scaling tool and the parameter sweep
+with its locked CSV fan-in.  Each phase prints one line with its name,
+PASS and its numbers; any failure raises and the script exits non-zero.
+The line before the last is a JSON record of the kernels; the last line
+is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+non-zero at once and prints no result.
 """
 
 from __future__ import annotations
@@ -40,18 +42,18 @@ E_RTOL, E_ATOL = 1e-5, 1e-3
 # and at most ~1.5e-5 of the sum of magnitudes for 256 sequential adds.
 PAIR_RTOL, PAIR_ATOL = 1e-5, 1e-4
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# fp32 operations (an FMA counts two), read off the kernels' sources:
-# K1, metropolis_moves.cu: a pair_term (two min images 10, r^2 3, max 1,
-# division 1, powers 2, energy 4, sum 1), a well_term (two min images 10,
-# r^2 3, sqrt 1, tanh argument 2, tanh 1, transition 2, depth 2, sum 1), a
-# proposal with its wrap (14) and the decision (dE, -beta dE, exp, e += dE)
-K1_PAIR_FLOPS, K1_WELL_FLOPS, K1_MOVE_FLOPS = 22, 22, 18
-# K2, pair_energy.cu: a pair (two min images 10, r^2 3, max 1, division 1,
-# sr6 2, sr12 1, energy 4, virial 4) and a particle's well term (22)
-K2_PAIR_FLOPS, K2_WELL_FLOPS = 26, 22
+# K3 against its plain version with FFMA rounding (``fused``), relative to
+# the output: the two differ only where rounding a step twice (float64,
+# then float32) lands on a float32 tie, about one output ulp (6e-8) at
+# most.  At the check's inputs the loop moves the output by 2.3e-3
+# relative at n_acc 16, so this tolerance is 4e-4 of the loop's effect.
+K3_RTOL = 1e-6
+# against the plain version that rounds the multiply and the add apart, as
+# the TPU kernel does: over iters x depth = 2048 steps the two roundings
+# part by 5.8e-5 relative at the check's inputs (a float64 simulation)
+K3_UNFUSED_RTOL = 1e-4
+# the K3 check's size: B tiles of (8, 128), depth, iters, at every width
+K3_CHECK = dict(depth=8, iters=256)
 
 
 def phase(name: str, **numbers) -> None:
@@ -81,33 +83,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    """The least time the card could take, in ms, and what bounds it:
-    ``flops`` at the fp32 peak against ``nbytes`` at the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def k1_bound(c: int, n: int, num_wells: int, moves: int) -> tuple:
-    """K1's bound for ``moves`` moves of ``c`` chains of ``n`` particles:
-    each move evaluates the moved particle's old and new position against
-    the other n - 1 and the wells; the chains' positions, energies, max
-    displacements and accept counts are read and written once."""
-    per_move = (2 * (n - 1) * K1_PAIR_FLOPS + 2 * num_wells * K1_WELL_FLOPS
-                + K1_MOVE_FLOPS)
-    nbytes = c * (2 * n * 2 * 4 + 4 * 4)
-    return bound_ms(c * moves * per_move, nbytes)
-
-
-def k2_bound(c: int, n: int, num_wells: int) -> tuple:
-    """K2's bound for a (c, n, 2) batch: every pair i < j once and every
-    particle's wells; positions read once, (energy, virial) written once."""
-    flops = c * (n * (n - 1) // 2 * K2_PAIR_FLOPS
-                 + n * num_wells * K2_WELL_FLOPS)
-    return bound_ms(flops, c * (n * 2 * 4 + 2 * 4))
-
-
 def reference_spec(n: int = 3):
     from flowstate_tpu_torch.ops import Box, SystemSpec
 
@@ -135,7 +110,8 @@ def phase_build() -> float:
     for line in res.log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
-    require(set(res.libs) == {"metropolis_moves", "pair_energy"},
+    require(set(res.libs) == {"metropolis_moves", "pair_energy",
+                              "issue_rate"},
             f"built {sorted(res.libs)}")
     phase("2 build", seconds=f"{res.seconds:.2f}",
           libraries=",".join(sorted(res.paths.values())))
@@ -515,6 +491,7 @@ def phase_timing(card: str, c: int = 16384, moves: int = 1000) -> dict:
     from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
     from flowstate_tpu_torch.mcmc import init_alternating_wells
     from flowstate_tpu_torch.mcmc.state import init_chain_state
+    from flowstate_tpu_torch.tools.n_scaling import k1_bound
 
     spec = reference_spec(3)
 
@@ -588,6 +565,7 @@ def time_pair_kernel(card: str) -> dict:
     from flowstate_tpu_torch.mcmc import init_alternating_wells
     from flowstate_tpu_torch.ops import SystemSpec
     from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.tools.n_scaling import k2_bound
 
     pos3, _ = init_alternating_wells(100, 3, 0.03)
     pos3 = torch.as_tensor(pos3, dtype=torch.float32, device=DEVICE)
@@ -727,6 +705,7 @@ def phase_single_run(card: str, num_chains: int = 128) -> dict:
     from flowstate_tpu_torch.mcmc import initialise_fcc
     from flowstate_tpu_torch.mcmc.state import init_chain_state
     from flowstate_tpu_torch.ops import SystemSpec
+    from flowstate_tpu_torch.tools.n_scaling import k1_bound
 
     lattice, box = initialise_fcc(n, 0.3, 1.0)
     spec = SystemSpec.create(n, box, num_wells=0)
@@ -745,6 +724,264 @@ def phase_single_run(card: str, num_chains: int = 128) -> dict:
           wall_s=f"{wall_s:.2f}", k1_launch_ms=f"{k1_ms:.3f}",
           k1_launch_bound_ms=f"{k1_bound_ms:.4g}", k1_bound_by=k1_by,
           moves_per_launch=every)
+    return {"wall_s": wall_s}
+
+
+def sass_mix(library: str) -> dict:
+    """Per n_acc instance of the issue-rate kernel in ``library``,
+    by ``cuobjdump -sass``: the opcode counts of the whole function and of
+    its largest loop (the instructions from a backward branch's target to
+    the branch)."""
+    import re
+    from collections import Counter
+
+    from flowstate_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    listings, code = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inst = re.search(r"issue_rate_kernelILi(\d+)E", m.group(1))
+            code = (listings.setdefault(int(inst.group(1)), [])
+                    if inst else None)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)([^;]*)", line)
+        if m and code is not None:
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    mix = {}
+    for key, code in listings.items():
+        loop = []
+        for addr, op, args in code:
+            target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+            if target and int(target.group(1), 16) < addr:
+                body = [o for a, o, _ in code
+                        if int(target.group(1), 16) <= a <= addr]
+                loop = max(loop, body, key=len)
+        mix[key] = {"all": Counter(op for _, op, _ in code),
+                    "loop": Counter(loop)}
+    return mix
+
+
+def phase_issue_rate(card: str) -> dict:
+    """K3: its SASS (the unrolled FFMA chains, no local memory, no fp64),
+    the kernel at every compiled width against its plain version with
+    FFMA rounding at the probe's 4 x SMs tiles, at n_acc 16 and 4 tiles
+    against the plain version that rounds twice, their times, and the
+    fp32 roof read at the JAX tool's defaults (iters 65536, depth 8,
+    n_acc 16 ... 128)."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.kernels import build
+    from flowstate_tpu_torch.tools import n_scaling as ns
+
+    mix = sass_mix(build.build().paths["issue_rate"])
+    require(set(mix) == set(ns.ISSUE_RATE_WIDTHS),
+            f"issue_rate instances in the SASS: {sorted(mix)}")
+    depth = ns.ISSUE_RATE_DEPTH
+    for n_acc, m in sorted(mix.items()):
+        ops, loop = m["all"], m["loop"]
+        bad = {op: k for op, k in ops.items()
+               if op in ("LDL", "STL", "DADD", "DMUL", "DFMA", "F2F")}
+        ffma, size = loop.get("FFMA", 0), sum(loop.values())
+        require(ffma >= n_acc * depth and not bad,
+                f"issue_rate<{n_acc}>: {ffma} FFMA in the loop, "
+                f"local memory or fp64 {bad}")
+        # the loop is the chains' FFMA and the loop's own few instructions
+        require(ffma >= 0.9 * size, f"issue_rate<{n_acc}>: loop {loop}")
+        print(f"  SASS issue_rate<{n_acc}> (depth {depth}): loop {size} "
+              f"instructions, FFMA {ffma} ({ffma / size:.3f}) "
+              + " ".join(f"{op}={k}" for op, k in sorted(loop.items())
+                         if op != "FFMA")
+              + f"; function {sum(ops.values())} instructions", flush=True)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.random((4, 8, 128), dtype=np.float32),
+                        device=DEVICE)
+    y_k = ns.issue_rate_kernel(x, 16, **K3_CHECK)
+    y_p = ns.issue_rate_plain(x, 16, **K3_CHECK)
+    unfused = float(((y_k - y_p).abs() / y_p.abs()).max())
+    require(unfused <= K3_UNFUSED_RTOL,
+            f"K3 at 4 tiles differs from the plain version rounding twice "
+            f"by {unfused} relative")
+    print(f"  K3 vs plain (two roundings) at (4, 8, 128), n_acc 16, "
+          f"{K3_CHECK}: max_rel={unfused:.4g}", flush=True)
+
+    x = torch.as_tensor(rng.random((4 * sms, 8, 128), dtype=np.float32),
+                        device=DEVICE)
+    err = rel = 0.0
+    for n_acc in ns.ISSUE_RATE_WIDTHS:
+        y_k = ns.issue_rate_kernel(x, n_acc, **K3_CHECK)
+        y_p = ns.issue_rate_plain(x, n_acc, **K3_CHECK, fused=True)
+        # the loop's effect: the output less the sum of the initial x + i
+        effect = (y_p - ns.issue_rate_plain(x, n_acc, depth, 0)).abs()
+        require(bool(torch.isfinite(y_k).all()), "K3 output not finite")
+        d = (y_k - y_p).abs()
+        r = float((d / y_p.abs()).max())
+        require(r <= K3_RTOL, f"K3 n_acc {n_acc} differs by {r} relative")
+        print(f"  K3 vs plain (FFMA rounding) at ({4 * sms}, 8, 128), n_acc "
+              f"{n_acc}, {K3_CHECK}: max_abs={float(d.max()):.4g} "
+              f"max_rel={r:.4g} of_loop_effect="
+              f"{float(d.max() / effect.min()):.4g} "
+              f"bit_equal={float((d == 0).float().mean()):.6f}", flush=True)
+        err, rel = max(err, float(d.max())), max(rel, r)
+    ms = cuda_ms(lambda: ns.issue_rate_kernel(x, 16, **K3_CHECK), 20)
+    plain_ms = cuda_ms(lambda: ns.issue_rate_plain(x, 16, **K3_CHECK), 2)
+    bound, bound_by = ns.k3_bound(x.numel(), 16, **K3_CHECK)
+
+    rates = ns.calibrate_fp32_ops()
+    best = max(rates.values())
+    require(all(np.isfinite(v) and v > 0 for v in rates.values()),
+            f"fp32 rates {rates}")
+    # a probe under a quarter of the peak measures latency or spills
+    require(best > 0.25 * ns.PEAK_FP32_FLOPS, f"fp32 roof {best:.4g} ops/s")
+    phase("9 issue-rate probe", card=f"'{card}'", max_abs_err=f"{err:.4g}",
+          max_rel_err=f"{rel:.4g}", rtol=K3_RTOL,
+          unfused_rel_err=f"{unfused:.4g}", tiles=4 * sms,
+          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+          bound_ms=f"{bound:.4f}", bound_by=bound_by,
+          **{f"ops_per_s_n{a}": f"{v:.6g}" for a, v in rates.items()},
+          best_of_peak=f"{best / ns.PEAK_FP32_FLOPS:.4f}")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "fp32_ops_per_s": best}
+
+
+def phase_n_scaling(card: str, ns_list=(8, 128, 1024), moves: int = 256,
+                    repeats: int = 1) -> dict:
+    """The N-scaling tool, cut to three N and 256 moves: K1, K2 and K3
+    launch counts against its schedule, every rate and fraction of the
+    roof finite and positive, the rows' keys; then fast-math K1 against
+    the plain engine pathwise at N=1024, 512 chains (the device-memory
+    branch the tool times)."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.mcmc import initialise_fcc
+    from flowstate_tpu_torch.mcmc.state import init_chain_state
+    from flowstate_tpu_torch.ops import SystemSpec
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.tools import n_scaling as ns
+
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out:
+        path = os.path.join(out, "n_scaling.json")
+        cm.LAUNCHES = cp.LAUNCHES = ns.LAUNCHES = 0
+        t0 = time.perf_counter()
+        ns.main(["--ns", *map(str, ns_list), "--moves", str(moves),
+                 "--repeats", str(repeats), "--out", path])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        k1, k2, k3 = cm.LAUNCHES, cp.LAUNCHES, ns.LAUNCHES
+        with open(path) as f:
+            saved = json.load(f)
+    # per N: the equilibration launch, then two warm and `repeats` timed
+    # calls, exact and fast-math; K2: the initial energies, the resync
+    # after equilibration and one per timed call; K3: four widths, one
+    # warm-up and two timed calls each
+    calls = 2 * (2 + repeats)
+    expected = (len(ns_list) * (1 + calls), len(ns_list) * 2 * (2 + calls),
+                4 * 3)
+    require((k1, k2, k3) == expected,
+            f"n_scaling launched K1, K2, K3 {(k1, k2, k3)} times, schedule "
+            f"implies {expected}")
+    keys = {"n", "chains", "c_blk", "moves_per_call", "plain_moves_per_call",
+            "plain_moves_per_s", "kernel_moves_per_s",
+            "kernel_fast_moves_per_s", "speedup", "ops_per_move",
+            "row_elems_per_s", "frac_of_roof"}
+    rows = saved["rows"]
+    require([r["n"] for r in rows] == list(ns_list)
+            and [r["chains"] for r in rows]
+            == [ns.chains_for(n) for n in ns_list], "n_scaling rows")
+    for r in rows:
+        require(set(r) == keys, f"row keys {sorted(set(r) ^ keys)}")
+        vals = [r[k] for k in keys - {"n", "chains", "c_blk"}]
+        require(all(np.isfinite(v) and v > 0 for v in vals),
+                f"N={r['n']}: a rate is not finite and positive: {r}")
+    require(saved["device"]["name"] == torch.cuda.get_device_name(0),
+            f"n_scaling device {saved['device']}")
+
+    lattice, box = initialise_fcc(1024, 0.3, 1.0)
+    spec = SystemSpec.create(1024, box, num_wells=0)
+    chains = ns.chains_for(1024)
+    s = init_chain_state(spec, torch.as_tensor(
+        np.broadcast_to(lattice, (chains, 1024, 2)).copy(), device=DEVICE),
+        6, 1.0)
+    err = compare_pathwise(spec, s, 64, 16, "N=1024 fast_math",
+                           fast_math=True)
+    phase("10 n-scaling", card=f"'{card}'", ns=",".join(map(str, ns_list)),
+          launches_k1=k1, launches_k2=k2, launches_k3=k3,
+          wall_s=f"{wall_s:.2f}", fast_math_n1024_err=f"{err:.3g}",
+          **{f"moves_per_s_n{r['n']}": f"{r['kernel_moves_per_s']:.4g}"
+             for r in rows},
+          **{f"frac_of_roof_n{r['n']}": f"{r['frac_of_roof']:.4g}"
+             for r in rows})
+    return {"launches_k3": k3, "rows": rows}
+
+
+def phase_sweep(num_chains: int = 64) -> dict:
+    """The sweep over two densities of the default N=3 system with two
+    wells: launch counts, the locked results.csv (header, two rows,
+    density at its grid point, aspect ratio 1, finite pressure), the job
+    directories and parameters.json."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.experiments.sweep import (
+        SweepParams, run_experiments,
+    )
+    from flowstate_tpu_torch.io import aggregate
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+
+    densities = (0.03, 0.04)
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out:
+        params = SweepParams(density_start=densities[0],
+                             density_end=densities[1], density_intervals=2,
+                             equilibration_steps=1000, production_steps=15000,
+                             num_chains=num_chains, output_path=out)
+        cm.LAUNCHES = cp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        results_csv = run_experiments(params, device=DEVICE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        k1, k2 = cm.LAUNCHES, cp.LAUNCHES
+        with open(results_csv) as f:
+            lines = f.read().strip().split("\n")
+        d = os.path.dirname(results_csv)
+        jobs = sorted(j for j in os.listdir(d)
+                      if os.path.isdir(os.path.join(d, j)))
+        figures = sorted(f for j in jobs for f in os.listdir(os.path.join(d, j))
+                         if f.endswith(".png"))
+        require(os.path.isfile(os.path.join(d, "parameters.json")),
+                "parameters.json missing")
+    eq_blocks, eq_rest = divmod(params.equilibration_steps,
+                                params.adjusting_frequency)
+    samples = params.production_steps // params.sampling_frequency
+    per_point = eq_blocks + (1 if eq_rest else 0) + samples
+    expected = (2 * per_point, 2 * 2 * (1 + samples))
+    require((k1, k2) == expected,
+            f"sweep launched K1, K2 {(k1, k2)} times, schedule implies "
+            f"{expected}")
+    require(jobs == [f"rho_{r:.4f}_T_1.000_AR_1.00" for r in densities],
+            f"job directories {jobs}")
+    require(lines[0] == aggregate.RESULTS_HEADER and len(lines) == 3,
+            f"results.csv {lines}")
+    rows = np.array([[float(v) for v in line.split(",")] for line in lines[1:]])
+    require(bool(np.all(rows[:, 0] == 1.0)), f"temperatures {rows[:, 0]}")
+    require(bool(np.all(np.abs(rows[:, 1] / densities - 1) <= 1e-6)),
+            f"densities {rows[:, 1]} against the grid {densities}")
+    require(bool(np.all(rows[:, 3] == 1.0)), f"aspect ratios {rows[:, 3]}")
+    require(bool(np.all(np.isfinite(rows[:, 2]))), f"pressures {rows[:, 2]}")
+    phase("11 sweep", points=len(rows), chains=num_chains, launches_k1=k1,
+          expected_k1=expected[0], launches_k2=k2, expected_k2=expected[1],
+          densities=",".join(f"{v:.6g}" for v in rows[:, 1]),
+          pressures=",".join(f"{v:.5g}" for v in rows[:, 2]),
+          figures=len(figures), wall_s=f"{wall_s:.2f}")
     return {"wall_s": wall_s}
 
 
@@ -767,6 +1004,9 @@ def main() -> int:
     main_path = phase_main_path()
     timing = phase_timing(card)
     phase_single_run(card)
+    k3 = phase_issue_rate(card)
+    n_scaling = phase_n_scaling(card)
+    phase_sweep()
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{
@@ -792,6 +1032,18 @@ def main() -> int:
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "issue_rate",
+        "route": "cuda",
+        "source": "flowstate_tpu_torch/csrc/issue_rate.cu",
+        "replaces": "tools/n_scaling.py:74",
+        "launches": n_scaling["launches_k3"],
+        "max_abs_err": k3["err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

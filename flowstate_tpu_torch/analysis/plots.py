@@ -1,20 +1,24 @@
 """Figures of the single-run CLI.
 
 Port of two functions of ``flowstate_tpu/analysis/plots.py``, the ones
-``experiments/single_run.py`` calls; each writes SVG and PNG:
+``experiments/single_run.py`` calls; each writes SVG and PNG and returns
+their paths:
 
 * ``plot_potential``       — MCMC/visualise.py:78-281 (heatmap +
   cross-section of the double well)
 * ``visualise_simulation`` — MCMC/visualise.py:16-73
 
 Matplotlib is imported inside the functions and runs headless (Agg), so
-importing this module needs no matplotlib: the card's machine has none.
+importing this module needs no matplotlib.  Where matplotlib cannot be
+imported (the card's machine has none), a function writes nothing and
+returns None: a figure is not a result, and the caller says which figure
+it did not get.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +29,12 @@ from flowstate_tpu_torch.ops.potentials import (
 
 
 def _pyplot():
-    import matplotlib
+    """``matplotlib.pyplot`` on the Agg backend, or None where matplotlib
+    cannot be imported."""
+    try:
+        import matplotlib
+    except ImportError:
+        return None
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -46,9 +55,13 @@ def _save(fig, directory: str, base_filename: str) -> Tuple[str, str]:
 def plot_potential(box_size_x: float, box_size_y: float,
                    V0_list, r0: float, k: float, num_wells: int,
                    output_path: str,
-                   base_filename: str = "potential") -> Tuple[str, str]:
-    """Double-well heatmap + x-cross-section; MCMC/visualise.py:78-281."""
+                   base_filename: str = "potential"
+                   ) -> Optional[Tuple[str, str]]:
+    """Double-well heatmap + x-cross-section; MCMC/visualise.py:78-281.
+    None, and no file, without matplotlib."""
     plt = _pyplot()
+    if plt is None:
+        return None
     g = 200
     xs = np.linspace(0, box_size_x, g)
     ys = np.linspace(0, box_size_y, g)
@@ -81,9 +94,12 @@ def plot_potential(box_size_x: float, box_size_y: float,
 def visualise_simulation(configs: Sequence[np.ndarray], box_size_x: float,
                          box_size_y: float, directory: str,
                          base_filename: str = "simulation_snapshots"
-                         ) -> Tuple[str, str]:
-    """Up to 6 configuration snapshots; MCMC/visualise.py:16-73."""
+                         ) -> Optional[Tuple[str, str]]:
+    """Up to 6 configuration snapshots; MCMC/visualise.py:16-73.  None, and
+    no file, without matplotlib."""
     plt = _pyplot()
+    if plt is None:
+        return None
     configs = list(configs)[:6]
     n = len(configs)
     cols = min(3, max(n, 1))

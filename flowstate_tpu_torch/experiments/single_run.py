@@ -5,7 +5,9 @@ defaults, plus ``--device`` (default ``cuda``; the run stops if there is no
 card, it never carries on on the CPU unless ``--device cpu`` asks).
 Pipeline: init → plot potential (with wells) → equilibrate → produce →
 NPZ of centred production configs → CSV of chain 0's samples →
-visualisation → acceptance summary.
+visualisation → acceptance summary.  Where matplotlib cannot be imported
+(the card's machine has none), the figures are not written and one line
+says so for each; the NPZ, the CSV and the summary are the same.
 
 On the card, equilibration and production run their move segments through
 the move kernel (``cuda_metropolis.run_moves_auto``), and the pair-energy
@@ -96,6 +98,11 @@ def _initialise(args):
     return initialise_fcc(n, args.initial_rho, args.aspect_ratio)
 
 
+def _not_written(figure: str) -> None:
+    print(f"{figure}.png/.svg not written: matplotlib cannot be imported",
+          flush=True)
+
+
 def main(argv=None) -> dict:
     args = parse_arguments(argv)
     device = torch.device(args.device)
@@ -116,9 +123,10 @@ def main(argv=None) -> dict:
                              V0_list=args.V0_list, r0=args.r0, k=args.k)
     beta = 1.0 / args.temperature
 
-    if args.num_wells > 0:
-        plot_potential(box.size_x, box.size_y, args.V0_list, args.r0,
-                       args.k, args.num_wells, out_dir)
+    if args.num_wells > 0 and plot_potential(
+            box.size_x, box.size_y, args.V0_list, args.r0, args.k,
+            args.num_wells, out_dir) is None:
+        _not_written("potential")
 
     batch = np.tile(particles[None], (args.num_chains, 1, 1))
     state = init_chain_state(
@@ -161,8 +169,9 @@ def main(argv=None) -> dict:
 
     if args.visualise:
         stride = max(1, num_samples // 6)
-        visualise_simulation(list(configs[0, ::stride][:6]), box.size_x,
-                             box.size_y, out_dir)
+        if visualise_simulation(list(configs[0, ::stride][:6]), box.size_x,
+                                box.size_y, out_dir) is None:
+            _not_written("simulation_snapshots")
 
     attempts = int(state.attempts.sum())
     accepts = int(state.accepts.sum())

@@ -162,7 +162,10 @@ def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
             "flowstate_tpu_torch.experiments.single_run, "
             "flowstate_tpu_torch.analysis.plots, "
             "flowstate_tpu_torch.ops.cuda_pair, "
-            "flowstate_tpu_torch.kernels.build; "
+            "flowstate_tpu_torch.kernels.build, "
+            "flowstate_tpu_torch.tools.n_scaling, "
+            "flowstate_tpu_torch.io.aggregate, "
+            "flowstate_tpu_torch.experiments.sweep; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flowstate_tpu', 'matplotlib'}); "
             "print(bad); sys.exit(1 if bad else 0)")
