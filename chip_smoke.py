@@ -168,11 +168,10 @@ def compare_pathwise(spec, state, num_moves: int, seed: int, label: str,
 
 
 def phase_pathwise() -> float:
-    import numpy as np
     import torch
 
-    from flowstate_tpu_torch.mcmc import init_alternating_wells, initialise_fcc
-    from flowstate_tpu_torch.mcmc.state import init_chain_state
+    from flowstate_tpu_torch.mcmc import init_alternating_wells
+    from flowstate_tpu_torch.mcmc.state import TENSOR_FIELDS, init_chain_state
     from flowstate_tpu_torch.ops import SystemSpec
 
     def wells_state(n, c, seed):
@@ -188,21 +187,34 @@ def phase_pathwise() -> float:
                                  "N=3 C=1000"))
     errs.append(compare_pathwise(spec3, wells_state(3, 1000, 2), 256, 12,
                                  "N=3 C=1000 fast_math", fast_math=True))
-    errs.append(compare_pathwise(reference_spec(12), wells_state(12, 1000, 3),
-                                 256, 13, "N=12"))
-    pos, box = initialise_fcc(128, 0.3, 1.0)
-    spec128 = SystemSpec.create(128, box, num_wells=0)
-    s128 = init_chain_state(
-        spec128, torch.as_tensor(np.broadcast_to(pos, (256, 128, 2)).copy(),
-                                 device=DEVICE), 4, 0.3)
-    errs.append(compare_pathwise(spec128, s128, 256, 14, "N=128 pure LJ"))
-    # the single-run CLI's size: N=1024, 128 chains
-    pos, box = initialise_fcc(1024, 0.3, 1.0)
-    spec1024 = SystemSpec.create(1024, box, num_wells=0)
-    s1024 = init_chain_state(
-        spec1024, torch.as_tensor(np.broadcast_to(pos, (128, 1024, 2)).copy(),
-                                  device=DEVICE), 5, 1.0)
-    errs.append(compare_pathwise(spec1024, s1024, 64, 15, "N=1024 pure LJ"))
+    for fast in (False, True):
+        errs.append(compare_pathwise(
+            reference_spec(12), wells_state(12, 1000, 3), 256, 13,
+            "N=12" + " fast_math" * fast, fast_math=fast))
+
+    # every group size and its edges: 8 lanes (N=12 above, N=16), a warp
+    # (N=17, 32 with two wells, 33, 128, 200, 256), a block of 128 (N=257,
+    # 512) and of 256 (N=1024, the single-run CLI's size); chain counts
+    # that leave the last warp of 8-lane groups partly idle; exact and
+    # fast math
+    def lattice_state(n, c, seed, max_disp, wells=0):
+        pos, box = jittered_lattices(n, c, seed)
+        spec = SystemSpec.create(n, box, num_wells=wells,
+                                 V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
+        return spec, init_chain_state(spec, pos, seed, max_disp)
+
+    for n, c, moves, max_disp, wells in (
+            (16, 130, 256, 2.0, 2), (17, 100, 256, 2.0, 2),
+            (32, 130, 256, 2.0, 2), (33, 100, 128, 3.0, 0),
+            (128, 256, 256, 3.0, 0), (128, 130, 128, 3.0, 0),
+            (200, 64, 128, 3.0, 0), (256, 64, 128, 3.0, 0),
+            (257, 64, 128, 3.0, 0), (512, 64, 64, 3.0, 0),
+            (1024, 128, 64, 3.0, 0)):
+        spec_n, s_n = lattice_state(n, c, n + c, max_disp, wells)
+        for fast in (False, True):
+            errs.append(compare_pathwise(
+                spec_n, s_n, moves, n, f"N={n} wells={wells}"
+                + " fast_math" * fast, fast_math=fast))
     err = max(errs)
 
     # Philox: the same state and seed reproduce bit for bit; the next
@@ -210,6 +222,7 @@ def phase_pathwise() -> float:
     from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
 
     s = wells_state(3, 1000, 5)
+    before = {f: getattr(s, f).clone() for f in TENSOR_FIELDS}
     a = cm.run_moves_kernel(spec3, 1.0, s, 256)
     b = cm.run_moves_kernel(spec3, 1.0, s, 256)
     nxt = cm.run_moves_kernel(spec3, 1.0, a.replace(positions=s.positions,
@@ -221,7 +234,37 @@ def phase_pathwise() -> float:
     require(not torch.equal(a.positions, nxt.positions)
             and not torch.equal(a.positions, other.positions),
             "Philox stream replayed across launches or seeds")
+    # a launch reads its input state and writes fresh tensors
+    torch.cuda.synchronize()
+    changed = [f for f in TENSOR_FIELDS
+               if not torch.equal(getattr(s, f), before[f])]
+    require(not changed, f"a launch changed its input state's {changed}")
+    require(bool((a.attempts == s.attempts + 256).all())
+            and a.positions.data_ptr() != s.positions.data_ptr(),
+            "attempts or the output positions")
+    # the launch arithmetic the CPU tests hold is the built kernel's
+    wrong = [n for n in range(1, cm.MAX_PARTICLES + 1)
+             if cm.kernel_group_threads(n) != cm.group_threads(n)]
+    require(not wrong and cm.kernel_group_threads(0) == 0
+            and cm.kernel_group_threads(cm.MAX_PARTICLES + 1) == 0,
+            f"threads per chain differ from the kernel's table at N={wrong[:5]}")
+    # the kernel's branch-free division against IEEE division over the
+    # operands a pair term gives it: sigma^2 of order 1 over r^2 from the
+    # clamp at 1e-12 up to the box's diagonal, 4M log-uniform draws each
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(17)
+    num = torch.exp(torch.empty(1 << 22, device=DEVICE).uniform_(
+        -3.0, 3.0, generator=g))
+    den = torch.exp(torch.empty(1 << 22, device=DEVICE).uniform_(
+        -27.7, 9.0, generator=g))
+    den[:4] = torch.tensor([1e-12, 0.25, 6.25, 1.0], device=DEVICE)
+    quotient = cm.kernel_division(num, den)
+    torch.cuda.synchronize()
+    off = int((quotient != num / den).sum())
+    require(off == 0, f"the kernel's division differs from a / b at {off} "
+                      f"of {num.numel()} operands")
     phase("3 kernel vs plain, pathwise", max_abs_err=f"{err:.3g}",
+          division_bit_equal=num.numel(),
           near_tie=NEAR_TIE, pos_atol=POS_ATOL, e_rtol=E_RTOL, e_atol=E_ATOL)
     return err
 
@@ -504,6 +547,21 @@ def phase_timing(card: str, c: int = 16384, moves: int = 1000) -> dict:
     s100 = state(100)
     ms = cuda_ms(lambda: cm.run_moves_kernel(spec, 1.0, s100, 150), 200)
     plain_ms = cuda_ms(lambda: cm.run_moves_plain(spec, 1.0, s100, 150), 3)
+    # a call of the wrapper is one device kernel, K1, and nothing else (no
+    # layout copy, clone, fill or add).  The profiler may drop a record at
+    # the edge of its window, so the count may fall a little short of the
+    # calls, never exceed them; skipped if the profiler sees no kernel
+    calls = 20
+    events = device_kernels(lambda: cm.run_moves_kernel(spec, 1.0, s100, 150),
+                            calls)
+    names = sorted({e.name for e in events})
+    require(not events or (0.9 * calls <= len(events) <= calls
+                           and len(names) == 1
+                           and "metropolis_moves_kernel" in names[0]),
+            f"{calls} calls of run_moves_kernel ran {len(events)} device "
+            f"kernels: {names[:6]}")
+    device_launch_ms = (sum(e.time_range.elapsed_us() for e in events)
+                        / max(len(events), 1) / 1e3)
 
     # throughput: c chains x moves, 30 launches vs 2 for plain
     s = state(c)
@@ -525,7 +583,10 @@ def phase_timing(card: str, c: int = 16384, moves: int = 1000) -> dict:
     bound, bound_by = k1_bound(100, 3, 2, 150)
     big_bound, big_by = k1_bound(c, 3, 2, moves)
     phase("7 timing", card=f"'{card}'",
-          main_path_launch_ms=f"{ms:.4f}", main_path_plain_ms=f"{plain_ms:.2f}",
+          main_path_launch_ms=f"{ms:.4f}",
+          main_path_device_ms=f"{device_launch_ms:.4f}",
+          device_kernels_per_call=len(events) / calls,
+          main_path_plain_ms=f"{plain_ms:.2f}",
           main_path_bound_ms=f"{bound:.3g}", bound_by=bound_by,
           kernel_moves_per_s=f"{k_rate:.6g}", plain_moves_per_s=f"{p_rate:.6g}",
           chains=c, moves_per_launch=moves,
@@ -537,10 +598,10 @@ def phase_timing(card: str, c: int = 16384, moves: int = 1000) -> dict:
             "block": time_production_block(spec, s100)}
 
 
-def device_ms(fn, reps: int) -> float:
-    """Milliseconds of device time per call of ``fn``: the durations of
-    the kernels it launches, summed over ``reps`` profiled calls after one
-    warm-up call (0 if the profiler records no device kernel)."""
+def device_kernels(fn, reps: int) -> list:
+    """The profiler's device events (kernels, copies, memsets) of ``reps``
+    calls of ``fn`` after one warm-up call (empty if the profiler records
+    none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -550,9 +611,16 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               ) / 1e3 / reps
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds of device time per call of ``fn``: the durations of
+    the kernels it launches, summed over ``reps`` profiled calls after one
+    warm-up call (0 if the profiler records no device kernel)."""
+    return sum(e.time_range.elapsed_us()
+               for e in device_kernels(fn, reps)) / 1e3 / reps
 
 
 def time_pair_kernel(card: str) -> dict:
@@ -628,6 +696,11 @@ def time_production_block(spec, state, blocks: int = 100) -> dict:
     for name, us in top:
         print(f"  device {us / blocks:9.2f} us/block  {name[:70]}", flush=True)
     idle = 1.0 - busy_us / wall_us if kernels else float("nan")
+    # K1 once per block (the profiler may drop a record at the edge of its
+    # window, never add one)
+    moves = sum("metropolis_moves_kernel" in e.name for e in kernels)
+    require(not kernels or 0.9 * blocks <= moves <= blocks,
+            f"{moves} move-kernel launches in {blocks} blocks")
     phase("7c production block", block_ms=f"{block_ms:.4f}",
           profiled_wall_ms_per_block=f"{wall_us / 1e3 / blocks:.4f}",
           device_busy_ms_per_block=f"{busy_us / 1e3 / blocks:.4f}",
@@ -712,7 +785,7 @@ def phase_single_run(card: str, num_chains: int = 128) -> dict:
     s = init_chain_state(spec, torch.as_tensor(
         np.broadcast_to(lattice, (num_chains, n, 2)).copy(), device=DEVICE),
         0, float(summary["final_max_displacement"]))
-    k1_ms = cuda_ms(lambda: cm.run_moves_kernel(spec, 1.0, s, every), 3)
+    k1_ms = cuda_ms(lambda: cm.run_moves_kernel(spec, 1.0, s, every), 20)
     k1_bound_ms, k1_by = k1_bound(num_chains, n, 0, every)
     phase("8 single run", card=f"'{card}'", n=n, chains=num_chains,
           launches_k1=k1, expected_k1=expected_k1, launches_k2=k2,
@@ -732,38 +805,9 @@ def sass_mix(library: str) -> dict:
     by ``cuobjdump -sass``: the opcode counts of the whole function and of
     its largest loop (the instructions from a backward branch's target to
     the branch)."""
-    import re
-    from collections import Counter
+    from flowstate_tpu_torch.kernels.sass import loop_mix
 
-    from flowstate_tpu_torch.kernels import build
-
-    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", library], capture_output=True,
-                          text=True, check=True).stdout
-    listings, code = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            inst = re.search(r"issue_rate_kernelILi(\d+)E", m.group(1))
-            code = (listings.setdefault(int(inst.group(1)), [])
-                    if inst else None)
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                     r"([A-Z][A-Z0-9_]*)([^;]*)", line)
-        if m and code is not None:
-            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
-    mix = {}
-    for key, code in listings.items():
-        loop = []
-        for addr, op, args in code:
-            target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
-            if target and int(target.group(1), 16) < addr:
-                body = [o for a, o, _ in code
-                        if int(target.group(1), 16) <= a <= addr]
-                loop = max(loop, body, key=len)
-        mix[key] = {"all": Counter(op for _, op, _ in code),
-                    "loop": Counter(loop)}
-    return mix
+    return loop_mix(library, "issue_rate_kernel")
 
 
 def phase_issue_rate(card: str) -> dict:
@@ -856,8 +900,8 @@ def phase_n_scaling(card: str, ns_list=(8, 128, 1024), moves: int = 256,
     """The N-scaling tool, cut to three N and 256 moves: K1, K2 and K3
     launch counts against its schedule, every rate and fraction of the
     roof finite and positive, the rows' keys; then fast-math K1 against
-    the plain engine pathwise at N=1024, 512 chains (the device-memory
-    branch the tool times)."""
+    the plain engine pathwise at N=1024, 512 chains (the 256-thread
+    groups the tool times)."""
     import numpy as np
     import torch
 
@@ -889,17 +933,21 @@ def phase_n_scaling(card: str, ns_list=(8, 128, 1024), moves: int = 256,
     require((k1, k2, k3) == expected,
             f"n_scaling launched K1, K2, K3 {(k1, k2, k3)} times, schedule "
             f"implies {expected}")
-    keys = {"n", "chains", "c_blk", "moves_per_call", "plain_moves_per_call",
+    keys = {"n", "chains", "c_blk", "threads_per_chain", "moves_per_call",
+            "plain_moves_per_call",
             "plain_moves_per_s", "kernel_moves_per_s",
             "kernel_fast_moves_per_s", "speedup", "ops_per_move",
             "row_elems_per_s", "frac_of_roof"}
     rows = saved["rows"]
     require([r["n"] for r in rows] == list(ns_list)
             and [r["chains"] for r in rows]
-            == [ns.chains_for(n) for n in ns_list], "n_scaling rows")
+            == [ns.chains_for(n) for n in ns_list]
+            and [r["threads_per_chain"] for r in rows]
+            == [cm.kernel_group_threads(n) for n in ns_list], "n_scaling rows")
     for r in rows:
         require(set(r) == keys, f"row keys {sorted(set(r) ^ keys)}")
-        vals = [r[k] for k in keys - {"n", "chains", "c_blk"}]
+        vals = [r[k] for k in keys - {"n", "chains", "c_blk",
+                                      "threads_per_chain"}]
         require(all(np.isfinite(v) and v > 0 for v in vals),
                 f"N={r['n']}: a rate is not finite and positive: {r}")
     require(saved["device"]["name"] == torch.cuda.get_device_name(0),

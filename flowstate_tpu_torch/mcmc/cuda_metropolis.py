@@ -12,13 +12,23 @@ virial NaN until ``resync_energy``.
 ``run_moves_auto`` sends a CUDA tensor to the kernel and a CPU tensor to
 the plain version; ``run_moves_kernel`` raises on anything it does not
 take.  ``LAUNCHES`` counts the kernel's launches.
+
+The kernel gives each chain a group of threads (``group_threads``: 4 or 8
+lanes of a warp for N <= 16, a warp up to N = 256, a block of 128 or 256
+threads above), keeps the chain in shared memory for the whole launch and
+reads and writes the state's own tensors: a call is its checks, five
+``torch.empty`` and one launch, and leaves its input state untouched.
+``group_threads``, ``launch_shape`` and ``particle_index`` mirror the CUDA
+source's launch arithmetic and its division-free particle index for the
+CPU tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from flowstate_tpu_torch.mcmc import metropolis
@@ -42,13 +52,101 @@ class _MoveParams(ctypes.Structure):
          "eps4", "shift", "wx0", "wy0", "wx1", "wy1", "v00", "v01", "r0", "k")]
 
 
-def _entry_point():
+# Threads per chain by particle count, as ``group_threads`` in the CUDA
+# source: 4 up to GROUP4_MAX_N particles, 8 up to GROUP8_MAX_N, a warp up to
+# WARP_MAX_N, 128 up to BLOCK128_MAX_N, 256 above.
+GROUP4_MAX_N = 4
+GROUP8_MAX_N = 16
+WARP_MAX_N = 256
+BLOCK128_MAX_N = 512
+MAX_SHARED_BYTES = 48 * 1024  # dynamic shared memory without opting in
+
+
+def group_threads(n: int) -> int:
+    """Threads that own one chain of ``n`` particles in the move kernel."""
+    if not 1 <= n <= MAX_PARTICLES:
+        raise ValueError(f"the move kernel takes 1 to {MAX_PARTICLES} "
+                         f"particles (got {n})")
+    for limit, group in ((GROUP4_MAX_N, 4), (GROUP8_MAX_N, 8),
+                         (WARP_MAX_N, 32), (BLOCK128_MAX_N, 128)):
+        if n <= limit:
+            return group
+    return 256
+
+
+class LaunchShape(NamedTuple):
+    """The move kernel's launch for ``num_chains`` chains of ``n``
+    particles, as ``launch_moves`` in the CUDA source computes it."""
+
+    group: int             # threads per chain
+    block: int             # threads per block: a warp, or the group
+    chains_per_block: int
+    stride: int            # floats per chain and plane in shared memory
+    shared_bytes: int
+    grid: int              # blocks
+
+
+def launch_shape(n: int, num_chains: int) -> LaunchShape:
+    group = group_threads(n)
+    block = max(group, 32)
+    chains = block // group
+    stride = group * (-(-n // group) | 1)    # an odd multiple of the group
+    return LaunchShape(group, block, chains, stride, 2 * chains * stride * 4,
+                       -(-num_chains // chains))
+
+
+def particle_index(bits, n: int):
+    """``bits % n`` for uint32 ``bits`` (numpy), by the kernel's
+    multiply-shift: with ``magic = (2**64 - 1) // n + 1`` (mod 2**64), the
+    high 64 bits of ``(magic * bits mod 2**64) * n``."""
+    magic = np.uint64(((2 ** 64 - 1) // n + 1) % 2 ** 64)
+    low = magic * np.asarray(bits, dtype=np.uint64)      # wraps mod 2**64
+    n64, half = np.uint64(n), np.uint64(32)
+    # high word of the 96-bit product low * n, n < 2**32
+    carry = ((low & np.uint64(0xFFFFFFFF)) * n64) >> half
+    return (((low >> half) * n64 + carry) >> half).astype(np.int64)
+
+
+def _library():
     from flowstate_tpu_torch.kernels import build
 
-    fn = build.build().libs["metropolis_moves"].flowstate_metropolis_moves
-    fn.argtypes = [ctypes.POINTER(_MoveParams)] + [ctypes.c_void_p] * 9
+    return build.build().libs["metropolis_moves"]
+
+
+def _entry_point():
+    fn = _library().flowstate_metropolis_moves
+    fn.argtypes = [ctypes.POINTER(_MoveParams)] + [ctypes.c_void_p] * 15
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_group_threads(n: int) -> int:
+    """Threads per chain as the built kernel's own table gives them (0
+    outside its range); builds the kernels."""
+    fn = _library().flowstate_metropolis_group_threads
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(n)
+
+
+def kernel_division(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a / b`` by the move kernel's own branch-free division
+    (``div_rn_normal`` in the CUDA source), for float32 CUDA tensors of one
+    shape: to be held against ``a / b`` where ``b`` and the quotient are
+    normal numbers."""
+    _check("a", a, tuple(a.shape), torch.float32, a.device)
+    _check("b", b, tuple(a.shape), torch.float32, a.device)
+    if a.device.type != "cuda" or not 0 < a.numel() < 2 ** 31:
+        raise ValueError("kernel_division takes non-empty CUDA tensors")
+    q = torch.empty_like(a)
+    fn = _library().flowstate_metropolis_division_check
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), b.data_ptr(), q.data_ptr(), a.numel(),
+                torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"division check launch failed: cudaError {rc}")
+    return q
 
 
 def _params(spec: SystemSpec, beta: float, num_chains: int, num_moves: int,
@@ -109,7 +207,8 @@ def run_moves_kernel(spec: SystemSpec, beta: float, state: ChainState,
     ``(p_tab, d_tab, u_tab)`` as ``metropolis.draw_tables`` makes them.
     ``margin_log`` (C, T) float32, if given, receives each move's
     ``exp(-beta dE) - u``.  The returned virial is NaN (not tracked);
-    ``calls`` advances by one.
+    ``calls`` advances by one.  ``state``'s tensors are read, never written:
+    the new state's are fresh.
     """
     global LAUNCHES
     pos = state.positions
@@ -127,33 +226,37 @@ def run_moves_kernel(spec: SystemSpec, beta: float, state: ChainState,
     _check("positions", pos, (c, n, 2), torch.float32, dev)
     _check("energy", state.energy, (c,), torch.float32, dev)
     _check("max_disp", state.max_disp, (c,), torch.float32, dev)
+    _check("virial", state.virial, (c,), torch.float32, dev)
     _check("accepts", state.accepts, (c,), torch.int32, dev)
+    _check("attempts", state.attempts, (c,), torch.int32, dev)
     _check_tables(spec, c, num_moves, dev, tables, margin_log)
+    if pos.data_ptr() % 8:
+        raise ValueError("positions must be aligned to 8 bytes")
 
-    planes = pos.permute(1, 2, 0).contiguous()          # (N, 2, C)
-    energy = state.energy.clone()
-    accepts = torch.empty(c, dtype=torch.int32, device=dev)
+    out = state.replace(
+        positions=torch.empty_like(pos),
+        energy=torch.empty_like(state.energy),
+        virial=torch.empty_like(state.virial),
+        accepts=torch.empty_like(state.accepts),
+        attempts=torch.empty_like(state.attempts),
+        calls=state.calls + 1,
+    )
     params = _params(spec, beta, c, num_moves, state.seed, state.calls,
                      fast_math)
     p_tab, d_tab, u_tab = tables if tables is not None else (None,) * 3
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = _entry_point()
     with torch.cuda.device(dev):
-        rc = fn(ctypes.byref(params), ptr(planes), ptr(energy),
-                ptr(state.max_disp), ptr(accepts), ptr(p_tab), ptr(d_tab),
+        rc = fn(ctypes.byref(params), ptr(pos), ptr(state.energy),
+                ptr(state.max_disp), ptr(state.accepts), ptr(state.attempts),
+                ptr(out.positions), ptr(out.energy), ptr(out.accepts),
+                ptr(out.attempts), ptr(out.virial), ptr(p_tab), ptr(d_tab),
                 ptr(u_tab), ptr(margin_log),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"metropolis_moves launch failed: cudaError {rc}")
     LAUNCHES += 1
-    return state.replace(
-        positions=planes.permute(2, 0, 1).contiguous(),
-        energy=energy,
-        virial=torch.full_like(state.virial, float("nan")),
-        attempts=state.attempts + num_moves,
-        accepts=state.accepts + accepts,
-        calls=state.calls + 1,
-    )
+    return out
 
 
 def run_moves_plain(spec: SystemSpec, beta: float, state: ChainState,

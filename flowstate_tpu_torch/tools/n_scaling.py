@@ -246,7 +246,10 @@ def calibrate_fp32_ops(iters: int = 65536, depth: int = ISSUE_RATE_DEPTH,
 
 def c_blk(rows: int) -> int:
     """Chains per block of the JAX tool's rule (``_pick_c_blk``): 512 while
-    the padded particle rows are shallow, 128 beyond 32 rows."""
+    the padded particle rows are shallow, 128 beyond 32 rows.  It sets the
+    chain count of a row (``chains_for``) and says nothing of the port's
+    launch: K1 gives each chain ``cuda_metropolis.group_threads(n)``
+    threads, the row's ``threads_per_chain``."""
     return 512 if rows <= 32 else 128
 
 
@@ -358,6 +361,7 @@ def main(argv=None) -> dict:
         plain_rate = chains * args.plain_moves / t_plain
         row = {
             "n": n, "chains": chains, "c_blk": c_blk((n + 7) // 8 * 8),
+            "threads_per_chain": cm.group_threads(n),
             "moves_per_call": moves, "plain_moves_per_call": args.plain_moves,
             "plain_moves_per_s": plain_rate,
             "kernel_moves_per_s": chains * moves / t_kernel,
@@ -382,11 +386,12 @@ def main(argv=None) -> dict:
 
     print(f"\n{result['device']['name']}, {result['device']['power_limit']}"
           f"; fp32 roof {fp32_ops_per_s} ops/s\n")
-    print("| N | chains | plain moves/s | K1 moves/s | fast-math | "
-          "speedup | pair rows/s | frac of fp32 roof |")
-    print("|---|---|---|---|---|---|---|---|")
+    print("| N | chains | threads per chain | plain moves/s | K1 moves/s | "
+          "fast-math | speedup | pair rows/s | frac of fp32 roof |")
+    print("|---|---|---|---|---|---|---|---|---|")
     for r in result["rows"]:
-        print(f"| {r['n']} | {r['chains']} | {r['plain_moves_per_s']:.4g} "
+        print(f"| {r['n']} | {r['chains']} | {r['threads_per_chain']} "
+              f"| {r['plain_moves_per_s']:.4g} "
               f"| {r['kernel_moves_per_s']:.4g} "
               f"| {r['kernel_fast_moves_per_s']:.4g} "
               f"| {r['speedup']:.4g}x "

@@ -206,6 +206,7 @@ def test_n_scaling_on_the_cpu_writes_finite_rows(tmp_path, monkeypatch):
                     "frac_of_roof"):
             assert np.isfinite(r[key]) and r[key] > 0, (key, r)
         assert r["ops_per_move"] == n_scaling.k1_ops_per_move(r["n"], 0)
+        assert r["threads_per_chain"] == cm.group_threads(r["n"]) == 8
 
 
 def test_n_scaling_refuses_cuda_without_a_card(tmp_path, monkeypatch):
