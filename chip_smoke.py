@@ -350,34 +350,96 @@ def compare_pair(spec, positions, label: str, overlaps=()) -> float:
     return err
 
 
+def wrap(pos, box):
+    """Positions taken into the box [0, L_x) x [0, L_y)."""
+    import torch
+
+    size = torch.tensor([box.size_x, box.size_y], device=pos.device)
+    return torch.remainder(pos, size)
+
+
+# K2 against its plain version: (C, N, wells, {chain: (i, j)}) where
+# particle j is put 0.1 from particle i, inside the hard core
+PAIR_CHECK_SHAPES = (
+    (7, 1, 2, {}), (5, 2, 2, {4: (0, 1)}),
+    (9, 5, 2, {8: (4, 0)}), (37, 17, 0, {0: (3, 11), 36: (16, 0)}),
+    (2048, 32, 0, {}), (64, 257, 0, {}), (64, 300, 0, {}),
+    (32, 1000, 0, {}), (128, 1024, 0, {}),
+    (3, 1024, 2, {1: (1023, 0), 2: (0, 512)}),
+    (8, 300, 2, {2: (17, 211), 5: (17, 211)}),
+    (4, 4096, 0, {}), (1, 8192, 0, {}))
+# K2's launch table, held against the Python mirror: every lane-group size
+# and its edges, clusters around powers of two and the 52 KB staging edge,
+# at chain counts that leave warps and waves part-filled
+PAIR_TABLE_NS = list(range(1, 41)) + [63, 64, 65, 127, 128, 129, 255, 256,
+                                      257, 300, 511, 512, 513, 1000, 1023,
+                                      1024, 1025, 4095, 4096, 4097, 4437,
+                                      4438, 8192, 92416]
+PAIR_TABLE_CS = (1, 2, 3, 7, 9, 37, 64, 100, 128, 512, 2048, 6144, 100000)
+
+
 def phase_pair_kernel() -> float:
-    """K2 against its plain version at the shapes the paths give it and up
-    to N=4096, an overlap batch, and bit-identical repeats."""
+    """K2 against its plain version at the shapes the paths give it and at
+    each path's edges (lane groups at N=1, 2, 5, 17 with shadow groups past
+    the last chain; clusters of 1 to 8 blocks at N=257 ... 4096, staged; N=8192
+    read from device memory), overlap batches across lanes, cluster ranks
+    and the circulant wrap, and bit-identical repeats; then the Python
+    mirror of the launch table against the built kernel's own."""
     import torch
 
     from flowstate_tpu_torch.mcmc import init_alternating_wells
-    from flowstate_tpu_torch.ops import SystemSpec
+    from flowstate_tpu_torch.ops import Box, SystemSpec
+    from flowstate_tpu_torch.ops import cuda_pair as cp
 
+    wells = dict(num_wells=2, V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
     errs = []
     pos, _ = init_alternating_wells(100, 3, 0.03)
     errs.append(compare_pair(reference_spec(3),
                              torch.as_tensor(pos, dtype=torch.float32,
                                              device=DEVICE),
                              "main path (100, 3), wells"))
-    for c, n in ((64, 300), (32, 1000), (128, 1024), (4, 4096)):
-        pos, box = jittered_lattices(n, c, seed=n)
-        errs.append(compare_pair(SystemSpec.create(n, box, num_wells=0), pos,
-                                 f"({c}, {n})"))
-    pos, box = jittered_lattices(300, 8, seed=1)
-    for chain in (2, 5):
-        pos[chain, 211] = pos[chain, 17] + 0.1
-    errs.append(compare_pair(
-        SystemSpec.create(300, box, num_wells=2, V0_list=(-10.0, -10.5),
-                          r0=1.2, k=15.0),
-        pos, "(8, 300), overlaps in 2, 5", overlaps=(2, 5)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c, n, w, overlaps in PAIR_CHECK_SHAPES:
+        pos, box = jittered_lattices(n, c, seed=n + c)
+        for chain, (i, j) in overlaps.items():
+            pos[chain, j] = pos[chain, i] + 0.1
+        pos = wrap(pos, box)
+        spec = SystemSpec.create(n, box, **(wells if w else {}))
+        sh = cp.launch_shape(n, c, sms)
+        errs.append(compare_pair(
+            spec, pos, f"({c}, {n}) wells={w} threads={sh.threads} "
+            f"cluster={sh.cluster} staged={sh.shared_bytes > 0}",
+            overlaps=sorted(overlaps)))
+    # every pair of neighbours 1e-5 inside the cutoff: a square lattice of
+    # spacing 2.49999 across the box's edges, shifted per chain; a pair the
+    # kernel dropped would move the virial by 0.062
+    side, a = 8, 2.49999
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    grid = torch.stack(torch.meshgrid(torch.arange(side), torch.arange(side),
+                                      indexing="ij"), -1).reshape(-1, 2) * a
+    pos = grid.to(DEVICE) + torch.rand((16, 1, 2), generator=g,
+                                       device=DEVICE) * side * a
+    box = Box(side * a, side * a)
+    errs.append(compare_pair(SystemSpec.create(side * side, box),
+                             wrap(pos.float(), box),
+                             "(16, 64) neighbours at 0.999996 r_c"))
     err = max(errs)
+    wrong = [(n, c, m) for m in sorted({sms, 132, 16}) for n in PAIR_TABLE_NS
+             for c in PAIR_TABLE_CS
+             if cp.kernel_launch_shape(n, c, m) != cp.launch_shape(n, c, m)]
+    require(not wrong, f"K2's launch differs from the mirror at (N, C, SMs) "
+                       f"{wrong[:5]}")
+    try:
+        cp.kernel_launch_shape(0, 1, sms)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K2's launch table took N=0")
     phase("3b pair kernel vs plain", max_abs_err=f"{err:.3g}",
-          rtol_of_magnitudes=PAIR_RTOL, atol=PAIR_ATOL)
+          rtol_of_magnitudes=PAIR_RTOL, atol=PAIR_ATOL,
+          launch_table_checked=len(PAIR_TABLE_NS) * len(PAIR_TABLE_CS)
+          * len({sms, 132, 16}))
     return err
 
 
@@ -488,9 +550,9 @@ def phase_main_path(total_steps: int = 10_000_000) -> dict:
         eq_blocks, eq_rest = divmod(config.equilibration_steps,
                                     config.adjusting_frequency)
         expected = eq_blocks + (1 if eq_rest else 0) + samples
-        # K2: the initial energies, then one resync per production block;
-        # two launches (tile pass, epilogue) each
-        expected_k2 = 2 * (1 + samples)
+        # K2: the initial energies, then one resync per production block,
+        # one launch each
+        expected_k2 = 1 + samples
         cm.LAUNCHES = 0
         cp.LAUNCHES = 0
         result = mcmc_only.run(config, total_steps, device=DEVICE)
@@ -508,6 +570,14 @@ def phase_main_path(total_steps: int = 10_000_000) -> dict:
         for i in range(config.num_chains):
             needed += [os.path.join("mc_runs", f"run_{i + 1:03d}", f)
                        for f in ("sampled_data.csv", "mc_run_configs.npy")]
+        # the figures' data, written with or without matplotlib: per run
+        # for the first ten runs, then across runs
+        for i in range(min(10, config.num_chains)):
+            needed += [os.path.join("mc_runs", f"run_{i + 1:03d}", f)
+                       for f in ("well_statistics_data.json",
+                                 f"avg_x_coordinate_run_{i + 1}_data.json")]
+        needed += ["avg_free_energy_data.json", "state_histogram_data.json",
+                   "multi_avg_x_data.json"]
         missing = [f for f in needed if not os.path.exists(os.path.join(d, f))]
         require(not missing, f"missing artifacts {missing[:5]}")
         rows = np.genfromtxt(os.path.join(d, "mc_runs", "run_001",
@@ -515,6 +585,17 @@ def phase_main_path(total_steps: int = 10_000_000) -> dict:
                              delimiter=",", skip_header=1, usecols=(1, 3))
         require(rows.shape == (samples, 2) and np.isfinite(rows).all(),
                 "sampled_data.csv energies/pressures not finite")
+        with open(os.path.join(d, "avg_free_energy_data.json")) as f:
+            free = json.load(f)
+        with open(os.path.join(d, "state_histogram_data.json")) as f:
+            states = json.load(f)["state_counts"]
+        require(free["final_mean"] == result["delta_f_mean"]
+                and len(free["mean"]) == samples
+                and sum(states.values()) == config.num_chains * samples,
+                f"avg_free_energy / state_histogram data: {free['final_mean']}"
+                f", {len(free['mean'])} samples, {sum(states.values())} "
+                "configurations")
+        drawn = os.path.exists(os.path.join(d, "avg_free_energy.png"))
     acc = result["production_acceptance"]
     e_pp = result["energy_per_particle"]
     require(0.3 < acc < 0.7, f"production acceptance {acc}")
@@ -523,7 +604,8 @@ def phase_main_path(total_steps: int = 10_000_000) -> dict:
           launches_k2=launches_k2, expected_k2=expected_k2,
           acceptance=f"{acc:.4f}", e_per_particle=f"{e_pp:.4f}",
           delta_f=f"{result['delta_f_mean']:.4f}+-{result['delta_f_sem']:.4f}",
-          wall_s=f"{result['wall_s']:.2f}")
+          data_json_files=sum(f.endswith("_data.json") for f in needed),
+          figures_drawn=drawn, wall_s=f"{result['wall_s']:.2f}")
     return {"launches": launches, "launches_k2": launches_k2}
 
 
@@ -595,24 +677,16 @@ def phase_timing(card: str, c: int = 16384, moves: int = 1000) -> dict:
     k1 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
           "bound_by": bound_by}
     return {"k1": k1, "k2": time_pair_kernel(card),
-            "block": time_production_block(spec, s100)}
+            "block": time_production_block()}
 
 
 def device_kernels(fn, reps: int) -> list:
     """The profiler's device events (kernels, copies, memsets) of ``reps``
     calls of ``fn`` after one warm-up call (empty if the profiler records
     none)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from flowstate_tpu_torch.tools.pair_kernel_times import device_events
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return device_events(fn, reps)
 
 
 def device_ms(fn, reps: int) -> float:
@@ -626,14 +700,18 @@ def device_ms(fn, reps: int) -> float:
 def time_pair_kernel(card: str) -> dict:
     """K2 and its plain version at the main path's shape (100 chains, N=3,
     wells) and at the single-run CLI's (128, 1024): the time of a call by
-    CUDA events over back-to-back calls, and the device time of its
-    kernels by the profiler."""
+    CUDA events over back-to-back calls, and by the profiler the device
+    time of its kernels and their count, one per call; the bound counted
+    on these inputs (the LJ work of the pairs inside the cutoff) beside the
+    bound that charges every pair with it."""
     import torch
 
     from flowstate_tpu_torch.mcmc import init_alternating_wells
     from flowstate_tpu_torch.ops import SystemSpec
     from flowstate_tpu_torch.ops import cuda_pair as cp
-    from flowstate_tpu_torch.tools.n_scaling import k2_bound
+    from flowstate_tpu_torch.tools.n_scaling import (
+        k2_bound, pairs_inside_cutoff,
+    )
 
     pos3, _ = init_alternating_wells(100, 3, 0.03)
     pos3 = torch.as_tensor(pos3, dtype=torch.float32, device=DEVICE)
@@ -641,72 +719,64 @@ def time_pair_kernel(card: str) -> dict:
     pos1k, box = jittered_lattices(1024, 128, seed=2)
     spec1k = SystemSpec.create(1024, box, num_wells=0)
     out = {}
+    calls = 20
     for label, spec, pos, reps, plain_reps in (
             ("main_path", spec3, pos3, 1000, 100),
             ("n1024", spec1k, pos1k, 100, 5)):
-        k_ms = cuda_ms(lambda: cp.total_energy_virial_kernel(spec, pos), reps)
+        def call(spec=spec, pos=pos):
+            return cp.total_energy_virial_kernel(spec, pos)
+
+        k_ms = cuda_ms(call, reps)
         p_ms = cuda_ms(lambda: cp.total_energy_virial_plain(spec, pos),
                        plain_reps)
-        b_ms, b_by = k2_bound(pos.shape[0], spec.num_particles,
-                              spec.num_wells)
+        c, n = pos.shape[0], spec.num_particles
+        inside = pairs_inside_cutoff(spec, pos)
+        b_ms, b_by = k2_bound(c, n, spec.num_wells, inside)
+        all_ms, all_by = k2_bound(c, n, spec.num_wells)
+        # one device kernel per call (the profiler may drop a record at the
+        # edge of its window, never add one); skipped if it sees none
+        events = device_kernels(call, calls)
+        names = sorted({e.name for e in events})
+        require(not events or (0.9 * calls <= len(events) <= calls
+                               and len(names) == 1 and "pair_" in names[0]),
+                f"{calls} K2 calls at ({c}, {n}) ran {len(events)} device "
+                f"kernels: {names[:6]}")
         out[label] = {
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "device_ms": device_ms(
-                lambda: cp.total_energy_virial_kernel(spec, pos), 20),
+            "all_pairs_bound_ms": all_ms, "all_pairs_bound_by": all_by,
+            "pairs": c * (n * (n - 1) // 2), "pairs_inside": inside,
+            "device_ms": sum(e.time_range.elapsed_us()
+                             for e in events) / 1e3 / calls,
+            "device_kernels_per_call": len(events) / calls,
             "plain_device_ms": device_ms(
                 lambda: cp.total_energy_virial_plain(spec, pos), 3)}
     phase("7b pair kernel timing", card=f"'{card}'",
-          **{f"{k}_{f}": (f"{v[f]:.4g}" if f != "bound_by" else v[f])
+          **{f"{k}_{f}": (f"{v[f]:.4g}" if isinstance(v[f], float) else v[f])
              for k, v in out.items() for f in v})
     return out
 
 
-def time_production_block(spec, state, blocks: int = 100) -> dict:
-    """The main path's production block (150 moves of 100 chains through
-    K1, a resync through K2, one observable sample): host ms per block over
-    ``blocks`` blocks, then the card's busy share of a profiled window of
-    as many blocks (the sum of its kernels' durations over the window's
-    wall time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def time_production_block(blocks: int = 100) -> dict:
+    """The main path's production block by ``pair_kernel_times``: host ms
+    per block, then the card's busy share of a profiled window; K1 once
+    per block."""
+    from flowstate_tpu_torch.tools.pair_kernel_times import production_block
 
-    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
-
-    def run(s):
-        s, _ = cm.run_production_kernel(spec, 1.0, s, blocks, 150)
-        torch.cuda.synchronize()
-        return s
-
-    state = run(state)                          # warm
-    t0 = time.perf_counter()
-    state = run(state)
-    block_ms = (time.perf_counter() - t0) * 1e3 / blocks
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(state)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    for name, us in top:
-        print(f"  device {us / blocks:9.2f} us/block  {name[:70]}", flush=True)
-    idle = 1.0 - busy_us / wall_us if kernels else float("nan")
-    # K1 once per block (the profiler may drop a record at the edge of its
-    # window, never add one)
-    moves = sum("metropolis_moves_kernel" in e.name for e in kernels)
-    require(not kernels or 0.9 * blocks <= moves <= blocks,
-            f"{moves} move-kernel launches in {blocks} blocks")
-    phase("7c production block", block_ms=f"{block_ms:.4f}",
-          profiled_wall_ms_per_block=f"{wall_us / 1e3 / blocks:.4f}",
-          device_busy_ms_per_block=f"{busy_us / 1e3 / blocks:.4f}",
-          idle_share=(f"{idle:.3f}" if kernels else "not_measured"),
-          device_kernels_per_block=f"{len(kernels) / blocks:.1f}")
-    return {"block_ms": block_ms, "idle_share": idle}
+    b = production_block(blocks)
+    top = sorted(b["us_per_block_by_kernel"].items(), key=lambda kv: -kv[1])
+    for name, us in top[:6]:
+        print(f"  device {us:9.2f} us/block  {name[:70]}", flush=True)
+    # the profiler may drop a record at the edge of its window, never add
+    require(not top or 0.9 * blocks <= b["move_kernels"] <= blocks,
+            f"{b['move_kernels']} move-kernel launches in {blocks} blocks")
+    measured = b["idle_share"] is not None
+    phase("7c production block", block_ms=f"{b['block_ms']:.4f}",
+          profiled_wall_ms_per_block=f"{b['profiled_wall_ms_per_block']:.4f}",
+          device_busy_ms_per_block=f"{b['device_busy_ms_per_block']:.4f}",
+          idle_share=(f"{b['idle_share']:.3f}" if measured
+                      else "not_measured"),
+          device_kernels_per_block=f"{b['device_kernels_per_block']:.1f}")
+    return {"block_ms": b["block_ms"], "idle_share": b["idle_share"]}
 
 
 def phase_single_run(card: str, num_chains: int = 128) -> dict:
@@ -743,7 +813,7 @@ def phase_single_run(card: str, num_chains: int = 128) -> dict:
         wall_s = time.perf_counter() - t0
         k1, k2 = cm.LAUNCHES, cp.LAUNCHES
         expected_k1 = eq // adjust + (1 if eq % adjust else 0) + samples
-        expected_k2 = 2 * (1 + samples)
+        expected_k2 = 1 + samples
         require(k1 == expected_k1 and k2 == expected_k2,
                 f"single run launched K1 {k1} (expected {expected_k1}) and "
                 f"K2 {k2} (expected {expected_k2}) times")
@@ -925,10 +995,10 @@ def phase_n_scaling(card: str, ns_list=(8, 128, 1024), moves: int = 256,
             saved = json.load(f)
     # per N: the equilibration launch, then two warm and `repeats` timed
     # calls, exact and fast-math; K2: the initial energies, the resync
-    # after equilibration and one per timed call; K3: four widths, one
-    # warm-up and two timed calls each
+    # after equilibration and one per timed call, one launch each; K3: four
+    # widths, one warm-up and two timed calls each
     calls = 2 * (2 + repeats)
-    expected = (len(ns_list) * (1 + calls), len(ns_list) * 2 * (2 + calls),
+    expected = (len(ns_list) * (1 + calls), len(ns_list) * (2 + calls),
                 4 * 3)
     require((k1, k2, k3) == expected,
             f"n_scaling launched K1, K2, K3 {(k1, k2, k3)} times, schedule "
@@ -1011,7 +1081,7 @@ def phase_sweep(num_chains: int = 64) -> dict:
                                 params.adjusting_frequency)
     samples = params.production_steps // params.sampling_frequency
     per_point = eq_blocks + (1 if eq_rest else 0) + samples
-    expected = (2 * per_point, 2 * 2 * (1 + samples))
+    expected = (2 * per_point, 2 * (1 + samples))
     require((k1, k2) == expected,
             f"sweep launched K1, K2 {(k1, k2)} times, schedule implies "
             f"{expected}")

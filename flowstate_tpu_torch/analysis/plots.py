@@ -1,28 +1,37 @@
-"""Figures of the single-run CLI.
+"""Figures of the drivers, and the data behind them.
 
-Port of two functions of ``flowstate_tpu/analysis/plots.py``, the ones
-``experiments/single_run.py`` calls; each writes SVG and PNG and returns
-their paths:
+Port of the functions of ``flowstate_tpu/analysis/plots.py`` that the
+port's drivers call; each writes SVG and PNG and returns their paths:
 
 * ``plot_potential``       — MCMC/visualise.py:78-281 (heatmap +
   cross-section of the double well)
 * ``visualise_simulation`` — MCMC/visualise.py:16-73
+* ``plot_avg_free_energy``, ``plot_well_statistics``,
+  ``plot_avg_x_coordinate``, ``plot_multiple_avg_x_coordinates``,
+  ``plot_state_histogram`` — utils.py:712-1038 and 144-221; each also
+  writes ``<base_filename>_data.json`` (``_dump_json``) with the JAX
+  functions' file names and keys.
 
 Matplotlib is imported inside the functions and runs headless (Agg), so
 importing this module needs no matplotlib.  Where matplotlib cannot be
-imported (the card's machine has none), a function writes nothing and
-returns None: a figure is not a result, and the caller says which figure
-it did not get.
+imported (the card's machine has none), a function draws no figure and
+returns None for its paths: a figure is not a result, and the caller says
+which figure it did not get.  The ``_data.json`` is a result and is
+written either way.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from flowstate_tpu_torch.analysis.wells import (
+    STATE_LABELS, average_free_energy, state_histogram_counts,
+)
 from flowstate_tpu_torch.ops.potentials import (
     double_well_potential, well_centers,
 )
@@ -50,6 +59,24 @@ def _save(fig, directory: str, base_filename: str) -> Tuple[str, str]:
     fig.savefig(png, bbox_inches="tight")
     _pyplot().close(fig)
     return svg, png
+
+
+def _dump_json(directory: str, base_filename: str, data: dict) -> str:
+    """Write ``data`` to ``<directory>/<base_filename>_data.json``, numpy
+    arrays as lists and numpy scalars as numbers."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"{base_filename}_data.json")
+
+    def default(o):
+        if isinstance(o, np.ndarray):
+            return o.tolist()
+        if isinstance(o, (np.floating, np.integer)):
+            return o.item()
+        raise TypeError(type(o))
+
+    with open(path, "w") as f:
+        json.dump(data, f, default=default)
+    return path
 
 
 def plot_potential(box_size_x: float, box_size_y: float,
@@ -114,4 +141,129 @@ def visualise_simulation(configs: Sequence[np.ndarray], box_size_x: float,
         ax.set_aspect("equal")
     for ax in axes.ravel()[n:]:
         ax.axis("off")
+    return _save(fig, directory, base_filename)
+
+
+def plot_avg_free_energy(free_energy_array, directory: str,
+                         color: str = "C2",
+                         base_filename: str = "avg_free_energy"
+                         ) -> Tuple[Optional[str], Optional[str], float, float,
+                                    float]:
+    """Across-run mean ΔF with SEM band; utils.py:712-794.
+
+    Returns (svg, png, final_mean, final_sem, final_std); svg and png are
+    None without matplotlib."""
+    mean, sem, final_mean, final_sem, final_std = average_free_energy(
+        free_energy_array)
+    _dump_json(directory, base_filename,
+               {"mean": mean, "sem": sem, "final_mean": final_mean,
+                "final_sem": final_sem, "final_std": final_std})
+    plt = _pyplot()
+    if plt is None:
+        return None, None, final_mean, final_sem, final_std
+    runs = np.arange(1, len(mean) + 1)
+    fig, ax = plt.subplots(figsize=(8, 5))
+    ax.plot(runs, mean, color=color, label=r"$\langle\Delta F\rangle$")
+    ax.fill_between(runs, mean - sem, mean + sem, color=color, alpha=0.3,
+                    label="SEM")
+    ax.set_xlabel("Sample")
+    ax.set_ylabel(r"$\Delta F / k_B T$")
+    ax.set_title(
+        rf"Final $\Delta F$ = {final_mean:.3f} $\pm$ {final_sem:.3f} $k_BT$")
+    ax.legend()
+    svg, png = _save(fig, directory, base_filename)
+    return svg, png, final_mean, final_sem, final_std
+
+
+def plot_well_statistics(avg_x_values, p_a_values, p_b_values,
+                         deltaF_values, runs, half_box: float,
+                         directory: str,
+                         base_filename: str = "well_statistics"
+                         ) -> Optional[Tuple[str, str]]:
+    """3-panel ⟨x⟩ / occupancies / ΔF; utils.py:796-880."""
+    _dump_json(directory, base_filename,
+               {"avg_x": np.asarray(avg_x_values),
+                "p_a": np.asarray(p_a_values),
+                "p_b": np.asarray(p_b_values),
+                "deltaF": np.asarray(deltaF_values),
+                "runs": np.asarray(runs)})
+    plt = _pyplot()
+    if plt is None:
+        return None
+    fig, axes = plt.subplots(3, 1, figsize=(9, 11), sharex=True)
+    axes[0].plot(runs, avg_x_values, lw=0.7)
+    axes[0].axhline(half_box, color="gray", ls="--", lw=0.8)
+    axes[0].set_ylabel(r"$\langle x \rangle$")
+    axes[1].plot(runs, p_a_values, label="P(A)")
+    axes[1].plot(runs, p_b_values, label="P(B)")
+    axes[1].set_ylabel("Occupancy")
+    axes[1].legend()
+    axes[2].plot(runs, deltaF_values, color="C3")
+    axes[2].set_ylabel(r"$\Delta F / k_B T$")
+    axes[2].set_xlabel("Sample")
+    fig.suptitle("Well statistics")
+    return _save(fig, directory, base_filename)
+
+
+def plot_avg_x_coordinate(configs: np.ndarray, directory: str,
+                          half_box: float, run_idx: int = 1,
+                          base_filename: Optional[str] = None
+                          ) -> Optional[Tuple[str, str]]:
+    """Per-particle and mean x trajectories; utils.py:883-958."""
+    base_filename = base_filename or f"avg_x_coordinate_run_{run_idx}"
+    arr = np.asarray(configs)  # (T, N, 2)
+    _dump_json(directory, base_filename, {"x": arr[..., 0]})
+    plt = _pyplot()
+    if plt is None:
+        return None
+    fig, ax = plt.subplots(figsize=(9, 5))
+    for p in range(arr.shape[1]):
+        ax.plot(arr[:, p, 0], lw=0.5, alpha=0.6, label=f"particle {p}")
+    ax.plot(arr[..., 0].mean(axis=1), color="k", lw=1.2, label="mean")
+    ax.axhline(half_box, color="gray", ls="--", lw=0.8)
+    ax.set_xlabel("Sample")
+    ax.set_ylabel("$x$")
+    ax.set_title(f"x-coordinates — run {run_idx}")
+    ax.legend(fontsize=7)
+    return _save(fig, directory, base_filename)
+
+
+def plot_multiple_avg_x_coordinates(configs_per_run, directory: str,
+                                    base_filename: str = "multi_avg_x"
+                                    ) -> Optional[Tuple[str, str]]:
+    """⟨x⟩ of the first <=10 runs on one grid; utils.py:961-1038."""
+    means = [np.asarray(cfg)[..., 0].mean(axis=1)
+             for cfg in list(configs_per_run)[:10]]
+    _dump_json(directory, base_filename,
+               {f"run_{i}": m for i, m in enumerate(means)})
+    plt = _pyplot()
+    if plt is None:
+        return None
+    fig, axes = plt.subplots(5, 2, figsize=(12, 14), sharex=True)
+    for i, (ax, mean_x) in enumerate(zip(axes.ravel(), means)):
+        ax.plot(mean_x, lw=0.7)
+        ax.set_title(f"run {i + 1}", fontsize=8)
+    fig.suptitle(r"$\langle x \rangle$ per run")
+    return _save(fig, directory, base_filename)
+
+
+def plot_state_histogram(classifications: np.ndarray, directory: str,
+                         base_filename: str = "state_histogram"
+                         ) -> Optional[Tuple[str, str]]:
+    """Share of configurations in each well state; utils.py:144-221."""
+    counts = state_histogram_counts(classifications)
+    _dump_json(directory, base_filename, {"state_counts": counts})
+    plt = _pyplot()
+    if plt is None:
+        return None
+    total = max(sum(counts.values()), 1)
+    fig, ax = plt.subplots(figsize=(10, 6))
+    for i, state in enumerate(STATE_LABELS):
+        pct = 100.0 * counts[state] / total
+        ax.bar(i, pct, alpha=0.7, label=state)
+    ax.set_xticks(range(len(STATE_LABELS)))
+    ax.set_xticklabels(STATE_LABELS, rotation=45, ha="right")
+    ax.set_ylabel("Percentage of Configurations / %")
+    ax.set_title("Distribution of System States")
+    ax.legend()
     return _save(fig, directory, base_filename)

@@ -1,8 +1,7 @@
 """Shared experiment plumbing: setup, equilibration, artifact dumps.
 
 Port of ``flowstate_tpu/experiments/common.py``, less the JAX compilation
-cache and the potential plot (figures wait for the ``analysis/plots.py``
-port).  Equilibration runs its move segments through
+cache.  Equilibration runs its move segments through
 ``cuda_metropolis.run_moves_auto``: on the card, the move kernel.
 """
 
@@ -18,6 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from flowstate_tpu_torch.analysis.plots import plot_potential
 from flowstate_tpu_torch.analysis.wells import classify_particles
 from flowstate_tpu_torch.mcmc.cuda_metropolis import run_moves_auto
 from flowstate_tpu_torch.mcmc.initialise import init_alternating_wells
@@ -75,6 +75,14 @@ def init_and_equilibrate(config: ExperimentConfig, spec: SystemSpec,
         logger.info("Equilibration done: %d steps/chain",
                     config.equilibration_steps)
     return state
+
+
+def plot_wells(config: ExperimentConfig, spec: SystemSpec,
+               directory: str) -> Optional[Tuple[str, str]]:
+    """The potential figure; None without matplotlib."""
+    return plot_potential(spec.box.size_x, spec.box.size_y,
+                          list(config.V0_list), config.r0, config.k_val,
+                          config.num_wells, directory)
 
 
 def device_name(device) -> str:

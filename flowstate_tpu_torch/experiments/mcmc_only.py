@@ -5,8 +5,10 @@ and production run their move segments through the move kernel on the
 card (``cuda_metropolis.run_moves_auto``); production resyncs the energy
 and virial before every sample (``run_production_kernel``), because the
 kernel does not track the virial.  The analysis (well statistics, ΔF with
-its SEM, CSV/NPY dumps, evidence JSON) runs on the host.  Figures wait for
-the ``analysis/plots.py`` port.
+its SEM, CSV/NPY dumps, evidence JSON, the figures and their
+``*_data.json``) runs on the host.  Without matplotlib (the card's machine)
+the figures are not drawn, the log says so, and the ``*_data.json`` files
+are written all the same.
 
     python -m flowstate_tpu_torch.experiments.mcmc_only --experiment_id X \\
         --device cuda
@@ -15,18 +17,24 @@ the ``analysis/plots.py`` port.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict
 
 import numpy as np
 import torch
 
+from flowstate_tpu_torch.analysis.plots import (
+    plot_avg_free_energy, plot_avg_x_coordinate,
+    plot_multiple_avg_x_coordinates, plot_state_histogram,
+    plot_well_statistics,
+)
 from flowstate_tpu_torch.analysis.wells import (
-    average_free_energy, calculate_well_statistics,
+    calculate_well_statistics, classify_particles,
 )
 from flowstate_tpu_torch.experiments.common import (
-    build_system, dump_run_artifacts, init_and_equilibrate, sector_counts,
-    setup_experiment, write_evidence,
+    build_system, dump_run_artifacts, init_and_equilibrate, plot_wells,
+    sector_counts, setup_experiment, write_evidence,
 )
 from flowstate_tpu_torch.mcmc.cuda_metropolis import run_production_kernel
 from flowstate_tpu_torch.utils.config import ExperimentConfig, mcmc_only_config
@@ -59,6 +67,7 @@ def run(config: ExperimentConfig, total_production_steps: int = 10_000_000,
     t_start = time.perf_counter()
     directory, logger, metrics = setup_experiment(config)
     spec = build_system(config)
+    figures = [plot_wells(config, spec, directory)]
 
     state = init_and_equilibrate(config, spec, device, logger)
     metrics.log("equilibrated", chains=config.num_chains,
@@ -80,16 +89,34 @@ def run(config: ExperimentConfig, total_production_steps: int = 10_000_000,
 
     free_energy_array = []
     for run_idx in range(config.num_chains):
-        _, _, _, d_f, _ = calculate_well_statistics(
+        avg_x, p_a, p_b, d_f, runs = calculate_well_statistics(
             configs[run_idx], 0, config.half_box, config.r0)
         free_energy_array.append(d_f)
+        if run_idx < 10:
+            run_dir = os.path.join(directory, "mc_runs",
+                                   f"run_{run_idx + 1:03d}")
+            figures += [
+                plot_well_statistics(avg_x, p_a, p_b, d_f, runs,
+                                     config.half_box, run_dir),
+                plot_avg_x_coordinate(configs[run_idx], run_dir,
+                                      config.half_box, run_idx + 1)]
         obs_i = type(obs)(**{k: v[run_idx] for k, v in vars(obs).items()})
         dump_run_artifacts(directory, run_idx, obs_i, None)
 
-    _, _, final_mean, final_sem, final_std = average_free_energy(
-        np.asarray(free_energy_array))
+    figures.append(plot_multiple_avg_x_coordinates(list(configs[:10]),
+                                                   directory))
+    svg, _, final_mean, final_sem, final_std = plot_avg_free_energy(
+        np.asarray(free_energy_array), directory)
+    figures.append(svg)
     logger.info("Final mean delta F = %s +- %s", final_mean, final_sem)
     metrics.log("free_energy", mean=final_mean, sem=final_sem, std=final_std)
+
+    cls = classify_particles(configs.reshape(-1, config.num_particles, 2),
+                             config.half_box, config.r0)
+    figures.append(plot_state_histogram(cls, directory))
+    if None in figures:
+        logger.info("%d figures not drawn (matplotlib cannot be imported); "
+                    "their *_data.json are written", figures.count(None))
     wall_s = time.perf_counter() - t_start
 
     write_evidence(config, {

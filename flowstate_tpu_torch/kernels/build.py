@@ -4,8 +4,9 @@ Every ``flowstate_tpu_torch/csrc/<name>.cu`` is compiled by its own
 ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
 interface, at first use, and loaded with ``ctypes``.  The compilers of all
 sources start together and run in parallel.  Each library lands in
-``kernels/_build/<hash>/``, keyed by a hash of its source and the flags,
-so an edited source builds anew and an unchanged one is reused.  Nothing
+``kernels/_build/<hash>/``, keyed by a hash of its source, the headers
+beside it (``csrc/*.cuh``) and the flags, so an edited source or header
+builds anew and an unchanged one is reused.  Nothing
 is built when this module is imported.
 
     python -m flowstate_tpu_torch.kernels.build    # build, print ptxas report
@@ -49,6 +50,10 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def headers() -> list:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def nvcc_path() -> str:
     """``nvcc`` from ``CUDA_HOME``, ``PATH`` or ``/usr/local/cuda``."""
     candidates = []
@@ -70,10 +75,12 @@ def _name(src: str) -> str:
 
 
 def _library_path(src: str) -> str:
-    """Where the library of one source lies once built."""
+    """Where the library of one source lies once built: keyed by the
+    source, every header (a source may include any) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in [src] + headers():
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, h.hexdigest()[:16], f"lib{_name(src)}.so")
 
 

@@ -45,9 +45,11 @@ PEAK_BYTES_PER_S = 3.35e12
 # r^2 3, sqrt 1, tanh argument 2, tanh 1, transition 2, depth 2, sum 1), a
 # proposal with its wrap (14) and the decision (dE, -beta dE, exp, e += dE)
 K1_PAIR_FLOPS, K1_WELL_FLOPS, K1_MOVE_FLOPS = 22, 22, 18
-# K2, pair_energy.cu: a pair (two min images 10, r^2 3, max 1, division 1,
-# sr6 2, sr12 1, energy 4, virial 4) and a particle's well term (22)
-K2_PAIR_FLOPS, K2_WELL_FLOPS = 26, 22
+# K2, pair_energy.cu: the distance of every pair (two min images 10, r^2
+# 3), the LJ terms of a pair inside the cutoff (max 1, division 1, sr6 2,
+# sr12 1, energy 4, virial 4) and a particle's well term (22); a pair
+# beyond the cutoff adds nothing and needs no LJ arithmetic
+K2_DISTANCE_FLOPS, K2_LJ_FLOPS, K2_WELL_FLOPS = 13, 13, 22
 
 TILE = (8, 128)                      # the TPU probe's one (8, 128) tile
 # the n_acc template instances of csrc/issue_rate.cu and its one depth:
@@ -83,12 +85,37 @@ def k1_bound(c: int, n: int, num_wells: int, moves: int) -> tuple:
     return bound_ms(c * moves * k1_ops_per_move(n, num_wells), nbytes)
 
 
-def k2_bound(c: int, n: int, num_wells: int) -> tuple:
-    """K2's bound for a (c, n, 2) batch: every pair i < j once and every
+def k2_bound(c: int, n: int, num_wells: int, pairs_inside=None) -> tuple:
+    """K2's bound for a (c, n, 2) batch: the distance of every pair i < j,
+    the LJ terms of the ``pairs_inside`` pairs within the cutoff (counted
+    on the batch; None: every pair, the bound before the skip) and every
     particle's wells; positions read once, (energy, virial) written once."""
-    flops = c * (n * (n - 1) // 2 * K2_PAIR_FLOPS
-                 + n * num_wells * K2_WELL_FLOPS)
+    pairs = c * (n * (n - 1) // 2)
+    if pairs_inside is None:
+        pairs_inside = pairs
+    flops = (pairs * K2_DISTANCE_FLOPS + pairs_inside * K2_LJ_FLOPS
+             + c * n * num_wells * K2_WELL_FLOPS)
     return bound_ms(flops, c * (n * 2 * 4 + 2 * 4))
+
+
+def pairs_inside_cutoff(spec: SystemSpec, positions: torch.Tensor) -> int:
+    """The pairs i < j of a (C, N, 2) batch within max(cutoff, hard core)
+    of each other, by minimum image: the pairs whose LJ terms K2 computes,
+    counted with torch on the batch's device, a few chains at a time."""
+    from flowstate_tpu_torch.ops.box import min_image, squared_norm
+
+    c, n = positions.shape[0], positions.shape[1]
+    reach2 = max(spec.cutoff, spec.hard_core) ** 2
+    upper = torch.triu(torch.ones(n, n, dtype=torch.bool,
+                                  device=positions.device), diagonal=1)
+    chunk = max(1, 2 ** 24 // max(n * n, 1))
+    total = 0
+    for i in range(0, c, chunk):
+        p = positions[i:i + chunk]
+        sq = squared_norm(min_image(p[:, :, None, :] - p[:, None, :, :],
+                                    spec.box))
+        total += int(((sq <= reach2) & upper).sum())
+    return total
 
 
 def k3_ops(num_elems: int, n_acc: int, depth: int, iters: int) -> int:

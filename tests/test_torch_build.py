@@ -3,8 +3,8 @@ card: a stand-in ``nvcc`` (a shell script that sleeps, records its call and
 makes an empty shared library with the host's C compiler) takes the place
 of the CUDA compiler, so the CPU can check what the build does around it:
 one compiler per source, all running at once, one library per source
-keyed by its contents, reuse of what is built, and a failure reported
-with the compiler's output.
+keyed by its contents and the headers', reuse of what is built, and a
+failure reported with the compiler's output.
 """
 
 import os
@@ -81,3 +81,15 @@ def test_a_failing_source_raises_with_the_compiler_output(fake_cuda):
     built = [f for _, _, files in os.walk(build.BUILD_DIR) for f in files
              if f.endswith(".so")]
     assert sorted(built) == ["libalpha.so", "libbeta.so", "libgamma.so"]
+
+
+def test_an_edited_header_builds_every_source_anew(fake_cuda):
+    csrc, log = fake_cuda
+    (csrc / "shared.cuh").write_text("// shared\n")
+    first = build.build()
+    assert sorted(first.libs) == ["alpha", "beta", "gamma"]   # not a source
+    (csrc / "shared.cuh").write_text("// shared, edited\n")
+    build._LOADED = None
+    again = build.build()
+    assert all(again.paths[k] != first.paths[k] for k in first.paths)
+    assert log.read_text().split().count("alpha.cu") == 2

@@ -142,6 +142,21 @@ def test_mcmc_only_experiment_on_cpu(tmp_path):
     events = [json.loads(line)["event"]
               for line in (d / "metrics.jsonl").read_text().splitlines()]
     assert events == ["equilibrated", "production_done", "free_energy"]
+    # the JAX driver's *_data.json set (flowstate_tpu/experiments/
+    # mcmc_only.py:119-135): per-run dumps for the first ten runs, then the
+    # multi-run <x>, the mean free energy and the state histogram
+    expected = {"avg_free_energy_data.json", "state_histogram_data.json",
+                "multi_avg_x_data.json"}
+    for i in range(1, 9):
+        expected |= {f"mc_runs/run_{i:03d}/well_statistics_data.json",
+                     f"mc_runs/run_{i:03d}/avg_x_coordinate_run_{i}_data.json"}
+    written = {str(p.relative_to(d)) for p in d.rglob("*_data.json")}
+    assert written == expected
+    free = json.loads((d / "avg_free_energy_data.json").read_text())
+    assert free["final_mean"] == out["delta_f_mean"]
+    assert len(free["mean"]) == 50
+    assert sum(json.loads((d / "state_histogram_data.json").read_text())
+               ["state_counts"].values()) == 8 * 50
 
 
 def test_unported_samplers_name_their_roadmap_item(tmp_path):

@@ -169,6 +169,27 @@ def test_op_counts_and_bounds():
     np.testing.assert_allclose(ms, 1e3 * 128 * 1024 * 1023 // 2 * 26 / 67e12)
 
 
+@pytest.mark.parametrize("c,n,wells", [(128, 1024, 0), (100, 3, 2),
+                                       (4, 4096, 1)])
+def test_k2_bound_charges_lj_work_for_pairs_inside_the_cutoff_only(c, n,
+                                                                   wells):
+    pairs = c * (n * (n - 1) // 2)
+    wells_ops = c * n * wells * n_scaling.K2_WELL_FLOPS
+    bytes_ms = 1e3 * c * (n * 8 + 8) / 3.35e12
+    # every pair inside: the count before the skip, 26 per pair
+    every, by = n_scaling.k2_bound(c, n, wells, pairs_inside=pairs)
+    assert (every, by) == n_scaling.k2_bound(c, n, wells)
+    np.testing.assert_allclose(
+        every, max(1e3 * (pairs * 26 + wells_ops) / 67e12, bytes_ms))
+    # a few pairs inside: their LJ terms, and the distance of every pair
+    inside = pairs // 200
+    few, _ = n_scaling.k2_bound(c, n, wells, pairs_inside=inside)
+    np.testing.assert_allclose(
+        few, max(1e3 * (pairs * 13 + inside * 13 + wells_ops) / 67e12,
+                 bytes_ms))
+    assert few < every or by == "bytes"
+
+
 def test_calibration_prints_and_returns_each_width(capsys):
     rates = n_scaling.calibrate_fp32_ops(iters=3, depth=2, widths=(2, 3),
                                          device="cpu")
@@ -228,3 +249,21 @@ def test_n_scaling_imports_without_nvcc_and_builds_nothing():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_pairs_inside_cutoff_counts_min_image_pairs_within_reach():
+    from flowstate_tpu_torch.ops import Box, SystemSpec
+
+    rng = np.random.default_rng(3)
+    box = Box(9.0, 7.0)
+    pos = rng.uniform(0, 1, size=(5, 40, 2)) * [9.0, 7.0]
+    spec = SystemSpec.create(40, box)
+    d = pos[:, :, None] - pos[:, None]
+    d -= np.array([9.0, 7.0]) * np.round(d / [9.0, 7.0])
+    r2 = (d ** 2).sum(-1)
+    want = sum(int((r2[c][np.triu_indices(40, 1)] <= 2.5 ** 2).sum())
+               for c in range(5))
+    assert 0 < want < 5 * 40 * 39 // 2
+    got = n_scaling.pairs_inside_cutoff(spec, torch.as_tensor(
+        pos, dtype=torch.float32))
+    assert abs(got - want) <= 2   # float32 against float64 at the cutoff

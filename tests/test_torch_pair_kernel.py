@@ -129,10 +129,115 @@ def test_kernel_wrapper_checks_its_input_and_refuses_cpu_tensors():
     assert cuda_pair.LAUNCHES == before
 
 
-def test_tile_pairs_cover_the_upper_triangle():
-    assert [cuda_pair.num_tile_pairs(n) for n in (1, 3, 256, 257, 1024, 4096)
-            ] == [1, 1, 1, 3, 10, 136]
-    assert cuda_pair.num_tile_pairs(92_000) <= 65535
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 16, 17, 255, 256, 257, 1024,
+                               4096])
+def test_the_pair_split_covers_every_unordered_pair_once(n):
+    """The mirrored circulant split, at the threads per chain the kernel
+    launches for one chain and for 128 on a 132-SM card (and 256 and 2048
+    threads above a warp's range): every pair i < j exactly once, each
+    thread's pairs in one row per unit, and no thread more than one unit
+    above the mean."""
+    threads = {cuda_pair.launch_shape(n, c, 132).threads for c in (1, 128)}
+    if n > cuda_pair.WARP_MAX_N:
+        threads |= {256, 2048}
+    for p in sorted(threads):
+        g, i, j = cuda_pair.thread_pairs(n, p)
+        assert np.all((0 <= g) & (g < p) & (i != j))
+        lo, hi = np.minimum(i, j).astype(np.int64), np.maximum(i, j)
+        seen = np.bincount(lo * n + hi, minlength=n * n).reshape(n, n)
+        np.testing.assert_array_equal(seen, np.triu(np.ones((n, n),
+                                                            np.int64), 1))
+        _, kseg, units = cuda_pair.split(n, p)
+        per_thread = np.bincount(g, minlength=p)
+        assert per_thread.max() <= units * kseg
+        assert per_thread.max() - len(g) / p <= kseg
+        # a thread's pairs run j = i + 1, i + 2, ... (mod n) along a row
+        first = g == 0
+        if first.sum() > 1:
+            step = (j[first][1:] - i[first][1:]) - (j[first][:-1]
+                                                   - i[first][:-1])
+            rows = i[first][1:] == i[first][:-1]
+            assert np.all(step[rows] % n == 1)
+
+
+def test_launch_table_at_its_edges():
+    shape = cuda_pair.launch_shape
+    # lane groups: 4 lanes to N=4, 8 to N=16, a warp to N=32, 32 / G chains
+    # per one-warp block; the main path is 13 warps
+    assert [shape(n, 1, 132).threads for n in (1, 4, 5, 16, 17, 32)] == [
+        4, 4, 8, 8, 32, 32]
+    assert shape(3, 100, 132) == (4, 0, 13, 32, 1, 1, 1, 0)
+    assert shape(1, 1, 132) == (4, 0, 1, 32, 1, 0, 1, 0)     # no pair
+    assert shape(2, 9, 132) == (4, 0, 2, 32, 1, 1, 1, 0)
+    assert shape(16, 130, 132).blocks == 33        # a part-filled warp
+    assert shape(32, 33, 132) == (32, 0, 33, 32, 1, 16, 1, 0)
+    # clusters from N=33: blocks = C x cluster, the chain staged up to 52 KB
+    for n, c in ((33, 1), (128, 512), (257, 64), (1024, 128), (1024, 512),
+                 (4096, 4), (4437, 3), (4438, 3), (10_000, 1)):
+        sh = shape(n, c, 132)
+        assert 1 <= sh.cluster <= cuda_pair.MAX_CLUSTER
+        assert (sh.block, sh.threads, sh.blocks) == (256, 256 * sh.cluster,
+                                                     c * sh.cluster)
+        assert (sh.segments, sh.seg_len, sh.units) == cuda_pair.split(
+            n, sh.threads)
+        staged = (n + n // 2 + sh.segments) * 8
+        assert sh.shared_bytes == (staged if staged <= 52 * 1024 else 0)
+    assert shape(4437, 3, 132).shared_bytes == 53248
+    assert shape(4438, 3, 132).shared_bytes == 0
+    # the single run's shape: 4 blocks per chain, one row per thread, one
+    # wave of 512 blocks; with 512 chains one block each
+    assert shape(1024, 128, 132) == (1024, 4, 512, 256, 1, 512, 1, 12296)
+    assert shape(1024, 512, 132) == (256, 1, 512, 256, 1, 512, 4, 12296)
+    # many chains fill the card without clusters where a block's threads
+    # use every row; fewer SMs, smaller clusters
+    assert shape(1024, 100_000, 132).cluster == 1
+    assert shape(300, 64, 132).cluster == 8
+    assert shape(300, 64, 16).cluster < 8
+
+
+def test_kernel_launch_is_bound_once_and_counts_one_per_call(monkeypatch):
+    """The wrapper's launch with the library stubbed: the entry point's
+    argtypes set at the first call only, one launch counted per call, a
+    cudaError raised and not counted; the parameters made once per
+    (spec, C, SMs)."""
+    calls, bound = [], []
+
+    class Entry:
+        restype = None
+        rc = 0
+
+        def __setattr__(self, name, value):
+            if name == "argtypes":
+                bound.append(value)
+            object.__setattr__(self, name, value)
+
+        def __call__(self, params, pos, out, stream):
+            calls.append((pos, out, stream))
+            return self.rc
+
+    entry = Entry()
+
+    class Library:
+        flowstate_pair_energy = entry
+
+    monkeypatch.setattr(cuda_pair, "_library", lambda: Library)
+    monkeypatch.setattr(cuda_pair, "_ENTRY", None)
+    _, tspec, pos = _system(100, 3, seed=6)
+    pos = torch.as_tensor(pos)
+    out = torch.empty((2, 3))
+    params = cuda_pair._params(tspec, 3, 132)
+    assert params is cuda_pair._params(tspec, 3, 132)
+    assert (params.num_chains, params.n, params.num_sms) == (3, 100, 132)
+    before = cuda_pair.LAUNCHES
+    for _ in range(3):
+        cuda_pair._launch(params, pos, out, 7)
+    assert cuda_pair.LAUNCHES == before + 3
+    assert len(bound) == 1 and len(calls) == 3
+    assert calls[0] == (pos.data_ptr(), out.data_ptr(), 7)
+    entry.rc = 719
+    with pytest.raises(RuntimeError, match="cudaError 719"):
+        cuda_pair._launch(params, pos, out, 7)
+    assert cuda_pair.LAUNCHES == before + 3 and len(bound) == 1
 
 
 def _c_struct_fields(source: str, struct: str):
