@@ -10,7 +10,10 @@ its plain PyTorch version, checks K1's statistics and the exact N=1 free
 energy, runs the MCMC-only experiment at the reference preset through K1
 and K2, times them, runs the NVT single-run CLI at N=1024, reads the
 card's fp32 roof with K3, runs the N-scaling tool and the parameter sweep
-with its locked CSV fan-in.  Each phase prints one line with its name,
+with its locked CSV fan-in, checks and times Algorithm 1's flow at full
+width (K=15, hidden 256, 32 bins), and runs Algorithm 1 end to end
+(equilibration and sample collection on K1 and K2, training, big moves
+whose proposal energies go through K2).  Each phase prints one line with its name,
 PASS and its numbers; any failure raises and the script exits non-zero.
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -766,16 +769,23 @@ def time_production_block(blocks: int = 100) -> dict:
     top = sorted(b["us_per_block_by_kernel"].items(), key=lambda kv: -kv[1])
     for name, us in top[:6]:
         print(f"  device {us:9.2f} us/block  {name[:70]}", flush=True)
-    # the profiler may drop a record at the edge of its window, never add
-    require(not top or 0.9 * blocks <= b["move_kernels"] <= blocks,
-            f"{b['move_kernels']} move-kernel launches in {blocks} blocks")
+    # K1 once per block, by the wrapper's count; the profiler loses some
+    # records (89 of 100 in one run), so its count may fall short of the
+    # launches, never exceed them
+    require(b["move_launches"] == blocks
+            and b["move_kernels"] <= b["move_launches"],
+            f"{b['move_launches']} move-kernel launches, "
+            f"{b['move_kernels']} recorded by the profiler, in {blocks} "
+            "blocks")
     measured = b["idle_share"] is not None
     phase("7c production block", block_ms=f"{b['block_ms']:.4f}",
           profiled_wall_ms_per_block=f"{b['profiled_wall_ms_per_block']:.4f}",
           device_busy_ms_per_block=f"{b['device_busy_ms_per_block']:.4f}",
           idle_share=(f"{b['idle_share']:.3f}" if measured
                       else "not_measured"),
-          device_kernels_per_block=f"{b['device_kernels_per_block']:.1f}")
+          device_kernels_per_block=f"{b['device_kernels_per_block']:.1f}",
+          move_launches=b["move_launches"],
+          move_kernels_recorded=b["move_kernels"])
     return {"block_ms": b["block_ms"], "idle_share": b["idle_share"]}
 
 
@@ -1103,6 +1113,268 @@ def phase_sweep(num_chains: int = 64) -> dict:
     return {"wall_s": wall_s}
 
 
+# A1's flow at full width (utils/config.py::algorithm1_config)
+A1_FLOW = dict(K=15, hidden_units=256, num_bins=32)
+# the card's float32 log q against the CPU's float64 on the same weights:
+# |d| <= FLOW_RTOL * (1 + |log q|).  Fifteen layers of spline log-dets
+# accumulate float32 rounding; on these weights (log q from -30 to -7) the
+# CPU's float32 is 3.5e-5 of (1 + |log q|) off its float64, the card's
+# 6.2e-5 (an NVIDIA H100).
+FLOW_RTOL = 1e-4
+
+
+def seeded_flow_tree(flow, seed: int):
+    """A numpy tree in the JAX layout of ``flow``'s parameters, far from
+    the identity init: linear weights N(0, 0.5 / sqrt(fan_in)), biases
+    N(0, 0.1), the unconditional splines' parameters N(0, 0.3)."""
+    import numpy as np
+
+    from flowstate_tpu_torch.flows import params_to_jax, tree_map
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(a):
+        if a.ndim == 3 and a.shape[-2] in (6, A1_FLOW["hidden_units"]):
+            return rng.normal(0.0, 0.5 / np.sqrt(a.shape[-2]), a.shape)
+        return rng.normal(0.0, 0.1 if a.ndim == 2 else 0.3, a.shape)
+
+    return tree_map(leaf, params_to_jax(flow))
+
+
+def median_ms(fn, reps: int = 7) -> float:
+    """Median milliseconds of ``reps`` calls of ``fn``, each between two
+    CUDA events, after one warm-up call."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def per_call(fn, reps: int = 2) -> dict:
+    """By the profiler: device kernels and device ms per call of ``fn``
+    (None where the profiler records no device kernel)."""
+    events = device_kernels(fn, reps)
+    if not events:
+        return {"kernels": None, "device_ms": None}
+    return {"kernels": len(events) / reps,
+            "device_ms": sum(e.time_range.elapsed_us()
+                             for e in events) / 1e3 / reps}
+
+
+def phase_flow(card: str, chains: int = 16384, batch: int = 512,
+               check_points: int = 2048) -> dict:
+    """A1's flow on the card at K=15, hidden 256, 32 bins, N=3: log q at
+    identity init, the round trip, log q against the CPU's float64 on
+    seeded weights, then the times of the flow's calls at 16,384 chains
+    and of a training step at batch 512, with device kernels per call and
+    the step's peak memory."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.flows import build_circular_flow, params_from_jax
+    from flowstate_tpu_torch.mcmc import (
+        init_alternating_wells, init_chain_state, nf_big_moves,
+    )
+    from flowstate_tpu_torch.training import (
+        TrainConfig, make_optimizer, make_train_step,
+    )
+
+    spec = reference_spec(3)
+    hb = spec.box.size_x / 2.0
+
+    def gen(seed, device=DEVICE):
+        g = torch.Generator(device=device)
+        g.manual_seed(seed)
+        return g
+
+    flow = build_circular_flow(3, 2, hb, generator=gen(1), device=DEVICE,
+                               **A1_FLOW)
+    x = (torch.rand((chains, 6), generator=gen(2), device=DEVICE)
+         * (2 * hb) - hb)
+    with torch.no_grad():
+        lp_id = flow.log_prob(x)
+    want = -6 * math.log(2 * hb)
+    id_err = float((lp_id - want).abs().max())
+    require(id_err <= 1e-4, f"identity-init log q off {want} by {id_err}")
+
+    tree = seeded_flow_tree(flow, 3)
+    params_from_jax(tree, flow)
+    with torch.no_grad():
+        back = flow.inverse(flow.forward(x))
+        lp = flow.log_prob(x[:check_points])
+    trip_err = float((back - x).abs().max())
+    require(math.isfinite(trip_err) and trip_err <= 0.01 * hb,
+            f"round trip error {trip_err}")
+    ref = build_circular_flow(3, 2, hb, device="cpu", **A1_FLOW).double()
+    params_from_jax(tree, ref)
+    with torch.no_grad():
+        lp64 = ref.log_prob(x[:check_points].cpu().double())
+    d = (lp.cpu().double() - lp64).abs()
+    lp_err = float(d.max())
+    lp_rel = float((d / (1.0 + lp64.abs())).max())
+    require(bool(torch.isfinite(lp).all()) and lp_rel <= FLOW_RTOL,
+            f"log q on the card vs float64: {lp_err} ({lp_rel} relative)")
+
+    # the flow's calls at ``chains``
+    g = gen(4)
+    pos, _ = init_alternating_wells(chains, 3, 0.03)
+    state = init_chain_state(spec, torch.as_tensor(pos, device=DEVICE), 5,
+                             0.65)
+    x_old = (state.positions - hb).reshape(chains, 6)
+    calls = {
+        "sample_and_log_prob": lambda: flow.sample_and_log_prob(chains, g),
+        "log_prob": lambda: flow.log_prob(x),
+        "paired": lambda: flow.sample_and_log_prob_with_old(chains, x_old, g),
+        "big_move_round": lambda: nf_big_moves(spec, 1.0, state, flow, hb, g),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            out[name] = {"ms": median_ms(fn), **per_call(fn)}
+
+    # one training step at ``batch``
+    cfg = TrainConfig(batch_size=batch)
+    opt = make_optimizer(cfg)
+    step = make_train_step(flow, cfg, opt)
+    opt_state = [opt.init(list(flow.parameters()))]
+    data = x[:batch].clone()
+
+    def train_step():
+        opt_state[0], loss = step(opt_state[0], data)
+        return loss
+
+    train_step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = train_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(loss)), f"training step loss {loss}")
+    out["train_step"] = {"ms": median_ms(train_step, 5), **per_call(
+        train_step, 1), "peak_mib": peak / 2 ** 20,
+        "peak_over_base_mib": (peak - base) / 2 ** 20}
+    for name, v in out.items():
+        print(f"  {name}: " + " ".join(
+            f"{k}={v[k]:.4f}" if isinstance(v[k], float) else f"{k}={v[k]}"
+            for k in v), flush=True)
+    phase("12 flow", card=f"'{card}'", chains=chains, batch=batch,
+          identity_log_q_err=f"{id_err:.3g}", round_trip_err=f"{trip_err:.3g}",
+          log_q_vs_float64_err=f"{lp_err:.3g}",
+          log_q_vs_float64_rel=f"{lp_rel:.3g}",
+          **{f"{k}_ms": f"{v['ms']:.3f}" for k, v in out.items()},
+          **{f"{k}_kernels": v["kernels"] for k, v in out.items()},
+          train_step_peak_mib=f"{out['train_step']['peak_mib']:.1f}")
+    return out
+
+
+# Phase 13's recipe: RESULTS.md's A1 at a short schedule
+A1_SMOKE = dict(num_chains=64, epochs=2, big_move_attempts=100,
+                big_move_interval=150, num_samples_for_analysis=5000)
+
+
+def phase_algorithm1(card: str, **overrides) -> dict:
+    """Algorithm 1 end to end through ``algorithm1.run`` at full width:
+    K1 and K2 launch counts against the schedule (one of each per testing
+    round), a finite final loss below the uniform flow's, big-move
+    acceptance above 0, the JAX driver's result files without
+    matplotlib, and each phase's wall time."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.experiments import algorithm1
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.utils.config import algorithm1_config
+
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out:
+        config = algorithm1_config(experiment_id="chip_smoke_a1",
+                                   output_dir=out,
+                                   **{**A1_SMOKE, **overrides})
+        eq_blocks, eq_rest = divmod(config.equilibration_steps,
+                                    config.adjusting_frequency)
+        samples = config.initial_training_num_samples // config.num_chains
+        rounds = config.big_move_attempts
+        # K1: equilibration, one per Phase B sample, one per round; K2: the
+        # initial energies, one resync per sample, one per round
+        expected = (eq_blocks + (1 if eq_rest else 0) + samples + rounds,
+                    1 + samples + rounds)
+        cm.LAUNCHES = cp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        result = algorithm1.run(config, device=DEVICE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = (cm.LAUNCHES, cp.LAUNCHES)
+        d = result["directory"]
+        nf = os.path.join("training_rounds", "initial_training_round")
+        needed = ["params.json", "experiment.log", "metrics.jsonl",
+                  "acceptance_rate_data.csv", "nf_acceptance_rate_data.json",
+                  "avg_free_energy_data.json",
+                  os.path.join(out, "evidence", "chip_smoke_a1_data.json")]
+        if config.num_chains >= 10:
+            needed.append("multi_avg_x_data.json")
+        needed += [os.path.join(nf, f) for f in (
+            "initial_model_circularspline_res_dense.pkl", "samples.npy",
+            "loss_plot_data.json", "frequency_heatmap_data.json",
+            "pair_correlation_function_data.json")]
+        for i in range(config.num_chains):
+            run_dir = os.path.join("mc_runs", f"run_{i + 1:03d}")
+            needed.append(os.path.join(run_dir, "mc_run_testing_configs.npy"))
+            if i < 10:
+                needed += [os.path.join(run_dir, f) for f in (
+                    "well_statistics_data.json",
+                    f"avg_x_coordinate_run_{i + 1}_data.json")]
+        missing = [f for f in needed if not os.path.exists(os.path.join(d, f))]
+        require(not missing, f"missing A1 artifacts {missing[:5]}")
+        acc_rows = np.loadtxt(os.path.join(d, "acceptance_rate_data.csv"),
+                              delimiter=",", skiprows=1)
+        testing = np.load(os.path.join(d, "mc_runs", "run_001",
+                                       "mc_run_testing_configs.npy"))
+        drawn = os.path.exists(os.path.join(d, "avg_free_energy.png"))
+    require(launches == expected,
+            f"A1 launched K1, K2 {launches} times, schedule implies "
+            f"{expected}")
+    loss = result["final_loss"]
+    acc = result["big_move_acceptance"]
+    # the loss leaves out the base's log q: the uniform flow's is 0, its
+    # negative log-likelihood 6 log(2 half_box) = 13.82
+    require(loss is not None and np.isfinite(loss) and loss < 0.0,
+            f"final loss {loss} (the uniform flow's is 0)")
+    require(acc > 0.0, f"big-move acceptance {acc}")
+    require(acc_rows.shape == (rounds + 1, 2)
+            and testing.shape == (rounds, 3, 2)
+            and bool(np.isfinite(testing).all()),
+            f"acceptance rows {acc_rows.shape}, testing configs "
+            f"{testing.shape}")
+    ph = result["phase_s"]
+    phase("13 algorithm 1", card=f"'{card}'", chains=config.num_chains,
+          samples=config.initial_training_num_samples,
+          epochs=config.epochs, rounds=rounds,
+          launches_k1=launches[0], expected_k1=expected[0],
+          launches_k2=launches[1], expected_k2=expected[1],
+          final_loss=f"{loss:.4f}", nll=f"{loss + 6 * np.log(10.0):.4f}",
+          acceptance=f"{acc:.4f}",
+          delta_f=f"{result['delta_f_mean']:.4f}+-{result['delta_f_sem']:.4f}",
+          **{f"phase_{k}_s": f"{v:.2f}" for k, v in ph.items()},
+          figures_drawn=drawn, wall_s=f"{wall_s:.2f}")
+    return {"launches": launches[0], "launches_k2": launches[1],
+            "phase_s": ph}
+
+
 def main() -> int:
     import torch
 
@@ -1125,6 +1397,8 @@ def main() -> int:
     k3 = phase_issue_rate(card)
     n_scaling = phase_n_scaling(card)
     phase_sweep()
+    phase_flow(card)
+    a1 = phase_algorithm1(card)
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{
@@ -1132,7 +1406,8 @@ def main() -> int:
         "route": "cuda",
         "source": "flowstate_tpu_torch/csrc/metropolis_moves.cu",
         "replaces": "flowstate_tpu/mcmc/pallas_metropolis.py:106",
-        "launches": main_path["launches"],
+        "launches": a1["launches"],
+        "launches_mcmc_only": main_path["launches"],
         "max_abs_err": err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -1144,7 +1419,8 @@ def main() -> int:
         "route": "cuda",
         "source": "flowstate_tpu_torch/csrc/pair_energy.cu",
         "replaces": "flowstate_tpu/ops/pallas_pair.py:33",
-        "launches": main_path["launches_k2"],
+        "launches": a1["launches_k2"],
+        "launches_mcmc_only": main_path["launches_k2"],
         "max_abs_err": err_k2,
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

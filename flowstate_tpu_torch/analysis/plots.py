@@ -6,11 +6,14 @@ port's drivers call; each writes SVG and PNG and returns their paths:
 * ``plot_potential``       — MCMC/visualise.py:78-281 (heatmap +
   cross-section of the double well)
 * ``visualise_simulation`` — MCMC/visualise.py:16-73
+* ``plot_loss``, ``plot_frequency_heatmap``, ``plot_pair_correlation``,
+  ``plot_acceptance_rate`` — utils.py:382-710 (Algorithm 1's figures);
 * ``plot_avg_free_energy``, ``plot_well_statistics``,
   ``plot_avg_x_coordinate``, ``plot_multiple_avg_x_coordinates``,
-  ``plot_state_histogram`` — utils.py:712-1038 and 144-221; each also
-  writes ``<base_filename>_data.json`` (``_dump_json``) with the JAX
-  functions' file names and keys.
+  ``plot_state_histogram`` — utils.py:712-1038 and 144-221.
+
+Each but the first two also writes ``<base_filename>_data.json``
+(``_dump_json``) with the JAX functions' file names and keys.
 
 Matplotlib is imported inside the functions and runs headless (Agg), so
 importing this module needs no matplotlib.  Where matplotlib cannot be
@@ -141,6 +144,86 @@ def visualise_simulation(configs: Sequence[np.ndarray], box_size_x: float,
         ax.set_aspect("equal")
     for ax in axes.ravel()[n:]:
         ax.axis("off")
+    return _save(fig, directory, base_filename)
+
+
+def plot_loss(loss_epoch: Sequence[float], directory: str,
+              base_filename: str = "loss_plot"
+              ) -> Optional[Tuple[str, str]]:
+    """Training loss per epoch; utils.py:382-420."""
+    _dump_json(directory, base_filename, {"loss_epoch": list(loss_epoch)})
+    plt = _pyplot()
+    if plt is None:
+        return None
+    fig, ax = plt.subplots(figsize=(8, 5))
+    ax.plot(np.arange(1, len(loss_epoch) + 1), loss_epoch)
+    ax.set_xlabel("Epoch")
+    ax.set_ylabel("Loss")
+    ax.set_title("Training loss")
+    return _save(fig, directory, base_filename)
+
+
+def plot_frequency_heatmap(samples_centered: np.ndarray, directory: str,
+                           half_box: float, bins: int = 100,
+                           base_filename: str = "frequency_heatmap"
+                           ) -> Optional[Tuple[str, str]]:
+    """2D position histogram of centred-frame samples; utils.py:452-528."""
+    pts = np.asarray(samples_centered).reshape(-1, 2)
+    h, xe, ye = np.histogram2d(
+        pts[:, 0], pts[:, 1], bins=bins,
+        range=[[-half_box, half_box], [-half_box, half_box]])
+    _dump_json(directory, base_filename,
+               {"histogram": h, "x_edges": xe, "y_edges": ye})
+    plt = _pyplot()
+    if plt is None:
+        return None
+    fig, ax = plt.subplots(figsize=(7, 6))
+    im = ax.imshow(h.T, origin="lower", aspect="equal", cmap="viridis",
+                   extent=[-half_box, half_box, -half_box, half_box])
+    fig.colorbar(im, ax=ax, label="counts")
+    ax.set_xlabel("$x$")
+    ax.set_ylabel("$y$")
+    ax.set_title("Sample frequency heatmap")
+    return _save(fig, directory, base_filename)
+
+
+def plot_pair_correlation(r_vals: np.ndarray, g_r: np.ndarray,
+                          directory: str,
+                          base_filename: str = "pair_correlation_function"
+                          ) -> Optional[Tuple[str, str]]:
+    """g(r); utils.py:576-644."""
+    _dump_json(directory, base_filename,
+               {"r_vals": np.asarray(r_vals), "g_r": np.asarray(g_r)})
+    plt = _pyplot()
+    if plt is None:
+        return None
+    fig, ax = plt.subplots(figsize=(8, 5))
+    ax.plot(r_vals, g_r)
+    ax.set_xlabel("$r$")
+    ax.set_ylabel("$g(r)$")
+    ax.set_title("Pair correlation function")
+    return _save(fig, directory, base_filename)
+
+
+def plot_acceptance_rate(p_acc_history: Sequence[float], directory: str,
+                         x_values: Optional[Sequence[float]] = None,
+                         xlabel: str = "Attempts",
+                         base_filename: str = "acceptance_rate",
+                         color: str = "C2") -> Optional[Tuple[str, str]]:
+    """Big-move acceptance against attempts or moves; utils.py:646-710."""
+    x = (list(x_values) if x_values is not None
+         else list(range(len(p_acc_history))))
+    _dump_json(directory, base_filename,
+               {"x_values": x, "p_acc_history": list(p_acc_history)})
+    plt = _pyplot()
+    if plt is None:
+        return None
+    fig, ax = plt.subplots(figsize=(8, 5))
+    ax.plot(x, p_acc_history, color=color)
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel("Acceptance rate")
+    ax.set_ylim(-0.02, 1.02)
+    ax.set_title("NF big-move acceptance rate")
     return _save(fig, directory, base_filename)
 
 

@@ -92,6 +92,16 @@ def device_name(device) -> str:
     return device.type
 
 
+def _thin(seq, max_points: int = 2000) -> list:
+    """A long series subsampled to <= max_points, first and last kept."""
+    arr = np.asarray(seq, dtype=float)
+    if arr.size <= max_points:
+        return arr.tolist()
+    idx = np.unique(np.round(
+        np.linspace(0, arr.size - 1, max_points)).astype(int))
+    return arr[idx].tolist()
+
+
 def write_evidence(config: ExperimentConfig, payload: dict, device,
                    evidence_dir: Optional[str] = None) -> str:
     """Commit-sized per-run summary JSON, under

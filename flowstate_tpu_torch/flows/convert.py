@@ -1,0 +1,57 @@
+"""Carry flow weights between the JAX package's layout and the port's.
+
+The JAX flow's parameters are a tuple with one pytree per layer of the
+``NormalizingFlow``; ``build_circular_flow`` has one ``ScannedLayers``,
+whose leaves are stacked ``(K, ...)``:
+
+    ({"net": {"initial": {"w": (K, in, out), "b": (K, out)},
+              "blocks": [{"l1": {...}, "l2": {...}}, ...],
+              "final": {...}},
+      "uncond": {"widths", "heights", "derivatives"}},)
+
+The port keeps the same tree (``flows/core.py::ParamTree``), so the
+carry-over is a copy leaf by leaf with the shapes checked.  Leaves are
+numpy arrays on the JAX side.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from flowstate_tpu_torch.flows.core import NormalizingFlow, tree_map
+
+
+def _layer_trees(flow: NormalizingFlow):
+    return [layer.params.tree() for layer in flow.layers]
+
+
+def params_from_jax(tree: Sequence, flow: NormalizingFlow) -> NormalizingFlow:
+    """Copy the JAX parameter tuple ``tree`` (numpy leaves) into ``flow``,
+    in the flow's dtype and on its device; returns ``flow``."""
+    if isinstance(tree, dict):
+        tree = (tree,)
+    ours = _layer_trees(flow)
+    if len(tree) != len(ours):
+        raise ValueError(f"{len(tree)} layer trees for a flow of "
+                         f"{len(ours)} layers")
+
+    def copy(dst: torch.Tensor, src) -> None:
+        src = np.asarray(src)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"leaf of shape {src.shape}, the flow's is "
+                             f"{tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(torch.as_tensor(src, dtype=dst.dtype))
+
+    for dst, src in zip(ours, tree):
+        tree_map(copy, dst, src)
+    return flow
+
+
+def params_to_jax(flow: NormalizingFlow) -> tuple:
+    """The flow's parameters in the JAX layout, as numpy arrays."""
+    return tuple(tree_map(lambda t: t.detach().cpu().numpy(), tree)
+                 for tree in _layer_trees(flow))

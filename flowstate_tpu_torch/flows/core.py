@@ -1,0 +1,266 @@
+"""The normalizing flow: a uniform torus base and a stack of couplings.
+
+Port of ``flowstate_tpu/flows/core.py``: ``NormalizingFlow`` (:33),
+``ScannedLayers`` (:249), ``build_circular_flow`` (:166) and
+``generate_samples`` (:333).  The flow is an ``nn.Module`` that owns its
+parameters; ``ScannedLayers`` keeps the K layers' parameter trees stacked
+on a leading K axis, as the JAX ``lax.scan`` over stacked params does, and
+loops over them (inverse K-1 ... 0).  JAX's ``remat`` has no counterpart:
+training keeps plain autograd (the peak memory of a step is measured by
+``chip_smoke.py`` phase 12).
+
+Directions: ``forward`` is latent -> data (sampling), ``inverse`` data ->
+latent (log_prob).
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from flowstate_tpu_torch.flows.coupling import CircularSplineCoupling
+from flowstate_tpu_torch.flows.distributions import UniformParticle
+from flowstate_tpu_torch.flows.nets import Tree
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts and lists (JAX's
+    ``tree_map`` on the parameter trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+class ParamTree(nn.Module):
+    """A parameter tree of nested dicts and lists held as ``nn.Parameter``
+    leaves, named by their path (``net.blocks.0.l1.w``)."""
+
+    def __init__(self, tree: Tree):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v))
+            elif isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
+
+    def tree(self) -> Tree:
+        out = {}
+        for k in self._keys:
+            v = getattr(self, k)
+            if isinstance(v, ParamTree):
+                out[k] = v.tree()
+            elif isinstance(v, nn.ModuleList):
+                out[k] = [m.tree() for m in v]
+            else:
+                out[k] = v
+        return out
+
+
+class ScannedLayers(nn.Module):
+    """K layers of one configuration, parameters stacked on a leading K
+    axis.  Each layer's init draws from ``generator`` in turn."""
+
+    def __init__(self, layer: CircularSplineCoupling, K: int,
+                 generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.layer = layer
+        self.K = K
+        trees = [layer.init_params(generator, dtype=dtype, device=device)
+                 for _ in range(K)]
+        self.params = ParamTree(tree_map(lambda *xs: torch.stack(xs), *trees))
+        # step t of the paired pass: layer t forward, layer K-1-t inverse
+        pairs = torch.stack([torch.arange(K), torch.arange(K - 1, -1, -1)], 1)
+        self.register_buffer("_pairs", pairs.to(device), persistent=False)
+
+    def _run(self, z: torch.Tensor, direction: str, order):
+        stacked = self.params.tree()
+        step = getattr(self.layer, direction)
+        log_det = torch.zeros_like(z[:, 0])
+        for k in order:
+            z, d = step(tree_map(lambda a: a[k], stacked), z)
+            log_det = log_det + d
+        return z, log_det
+
+    def forward(self, z: torch.Tensor):
+        return self._run(z, "forward", range(self.K))
+
+    def inverse(self, x: torch.Tensor):
+        return self._run(x, "inverse", range(self.K - 1, -1, -1))
+
+    def paired_forward_inverse(self, z_f: torch.Tensor, x_i: torch.Tensor):
+        """The forward chain on ``z_f`` and the inverse chain on ``x_i`` in
+        one K-step loop: step t runs layer t forward and layer K-1-t
+        inverse, their nets as one batched product."""
+        # (K, 2, ...) leaves, gathered once per call
+        paired = tree_map(lambda a: a[self._pairs], self.params.tree())
+        ld_f = torch.zeros_like(z_f[:, 0])
+        ld_i = torch.zeros_like(x_i[:, 0])
+        for t in range(self.K):
+            (z_f, df), (x_i, di) = self.layer.paired_forward_inverse(
+                tree_map(lambda a: a[t], paired), z_f, x_i)
+            ld_f = ld_f + df
+            ld_i = ld_i + di
+        return (z_f, ld_f), (x_i, ld_i)
+
+
+class NormalizingFlow(nn.Module):
+    """A chain of layers over a base distribution.
+
+    Each layer's ``forward`` / ``inverse`` return ``(z, log_det)``.
+    Sampling takes an explicit ``torch.Generator`` on the flow's device.
+    """
+
+    def __init__(self, base: UniformParticle, layers: Sequence[nn.Module]):
+        super().__init__()
+        self.base = base
+        self.layers = nn.ModuleList(layers)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(self.parameters()).dtype
+
+    # ----- transforms ---------------------------------------------------
+
+    def forward_and_log_det(self, z: torch.Tensor):
+        log_det = torch.zeros_like(z[:, 0])
+        for layer in self.layers:
+            z, ld = layer.forward(z)
+            log_det = log_det + ld
+        return z, log_det
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.forward_and_log_det(z)[0]
+
+    def inverse_and_log_det(self, x: torch.Tensor):
+        log_det = torch.zeros_like(x[:, 0])
+        for layer in reversed(self.layers):
+            x, ld = layer.inverse(x)
+            log_det = log_det + ld
+        return x, log_det
+
+    def inverse(self, x: torch.Tensor) -> torch.Tensor:
+        return self.inverse_and_log_det(x)[0]
+
+    # ----- losses -------------------------------------------------------
+
+    def forward_kld(self, x: torch.Tensor,
+                    include_base: bool = False) -> torch.Tensor:
+        """Maximum-likelihood loss ``-mean(log q(x))``, less the constant
+        base term unless ``include_base``."""
+        z, log_q = self.inverse_and_log_det(x)
+        if include_base:
+            log_q = log_q + self.base.log_prob(z)
+        return -torch.mean(log_q)
+
+    def reverse_kld(self, *args, **kwargs):
+        raise NotImplementedError(
+            "reverse_kld needs flows/targets.py: ROADMAP queue 1 item 9")
+
+    # ----- sampling and density -----------------------------------------
+
+    def _base_sample(self, num_samples: int,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        return self.base.sample(num_samples, generator,
+                                self.device).to(self.dtype)
+
+    def sample(self, num_samples: int,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.forward(self._base_sample(num_samples, generator))
+
+    def sample_and_log_prob(self, num_samples: int,
+                            generator: Optional[torch.Generator] = None):
+        """Samples and their log q in one forward pass."""
+        z = self._base_sample(num_samples, generator)
+        x, log_det = self.forward_and_log_det(z)
+        return x, self.base.log_prob(z) - log_det
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        z, log_q = self.inverse_and_log_det(x)
+        return log_q + self.base.log_prob(z)
+
+    def sample_and_log_prob_with_old(self, num_samples: int,
+                                     x_old: torch.Tensor,
+                                     generator: Optional[torch.Generator]
+                                     = None):
+        """``(x_new, log_q_new, log_q_old)``: the independence move's flow
+        work.  On a single ``ScannedLayers`` the two sweeps run in one
+        paired loop; otherwise as separate passes."""
+        z = self._base_sample(num_samples, generator)
+        lq0 = self.base.log_prob(z)
+        if len(self.layers) == 1 and isinstance(self.layers[0],
+                                                ScannedLayers):
+            (x_new, ld_f), (z_old, ld_i) = (
+                self.layers[0].paired_forward_inverse(z, x_old))
+            return x_new, lq0 - ld_f, ld_i + self.base.log_prob(z_old)
+        x_new, ld_f = self.forward_and_log_det(z)
+        return x_new, lq0 - ld_f, self.log_prob(x_old)
+
+    # ----- persistence --------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """A pickle of the JAX package's parameter layout (numpy arrays),
+        which ``flows.convert.params_from_jax`` and the JAX
+        ``NormalizingFlow.load`` both read."""
+        from flowstate_tpu_torch.flows.convert import params_to_jax
+
+        with open(path, "wb") as f:
+            pickle.dump(params_to_jax(self), f)
+
+    def load(self, path: str) -> "NormalizingFlow":
+        """Load a file ``save`` (of either package) wrote; only files this
+        program or its users wrote, since unpickling runs code."""
+        from flowstate_tpu_torch.flows.convert import params_from_jax
+
+        with open(path, "rb") as f:
+            return params_from_jax(pickle.load(f), self)
+
+
+def build_circular_flow(num_particles: int, num_dim: int, half_box: float,
+                        K: int = 15, hidden_units: int = 256,
+                        num_bins: int = 32, num_blocks: int = 2,
+                        net_type: str = "residual",
+                        generator: Optional[torch.Generator] = None,
+                        dtype=torch.float32, device="cuda"
+                        ) -> NormalizingFlow:
+    """The hybrid experiments' flow: a uniform torus base and K circular
+    couplings in one ``ScannedLayers``, on ``device``."""
+    dim = num_particles * num_dim
+    layer = CircularSplineCoupling(
+        features=dim, num_blocks=num_blocks, hidden_units=hidden_units,
+        ind_circ=tuple(range(dim)), num_bins=num_bins, tail_bound=half_box,
+        net_type=net_type)
+    layer = layer.to(device)
+    scanned = ScannedLayers(layer, K, generator, dtype=dtype, device=device)
+    return NormalizingFlow(UniformParticle(num_particles, num_dim, half_box),
+                           [scanned])
+
+
+def generate_samples(model: NormalizingFlow, generator: torch.Generator,
+                     n_iterations: int, samples_per_iteration: int = 5000,
+                     num_particles: Optional[int] = None,
+                     num_dim: Optional[int] = None) -> np.ndarray:
+    """Samples in chunks of ``samples_per_iteration``, as a host array:
+    (M, N, d) when the particle shape is given, else (M, dim)."""
+    with torch.no_grad():
+        chunks = [model.sample(samples_per_iteration, generator).cpu().numpy()
+                  for _ in range(n_iterations)]
+    out = np.concatenate(chunks, axis=0)
+    if num_particles is not None and num_dim is not None:
+        out = out.reshape(-1, num_particles, num_dim)
+    return out
+

@@ -1,7 +1,12 @@
-"""Batched Metropolis MCMC: chain state, the plain engine, the move kernel."""
+"""Batched Metropolis MCMC: chain state, the plain engine, the move
+kernel, and the flow's big moves."""
 
 from flowstate_tpu_torch.mcmc.cuda_metropolis import (
     run_moves_auto, run_moves_kernel, run_moves_plain, run_production_kernel,
+)
+from flowstate_tpu_torch.mcmc.hybrid import (
+    BigMoveResult, apply_big_moves, bulk_judge_flow, judge_flow,
+    nf_big_moves, to_box_frame, to_centered,
 )
 from flowstate_tpu_torch.mcmc.initialise import (
     init_alternating_wells,
@@ -39,4 +44,6 @@ __all__ = [
     "init_alternating_wells", "initialise_fcc", "initialise_low_left",
     "initialise_low_right",
     "check_equilibration", "acceptance_fraction", "ensemble_acceptance",
+    "BigMoveResult", "to_centered", "to_box_frame", "nf_big_moves",
+    "apply_big_moves", "judge_flow", "bulk_judge_flow",
 ]

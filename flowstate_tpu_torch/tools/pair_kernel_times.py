@@ -105,11 +105,13 @@ def production_block(blocks: int = 100) -> dict:
     t0 = time.perf_counter()
     state = run(state)
     block_ms = (time.perf_counter() - t0) * 1e3 / blocks
+    launches = cm.LAUNCHES
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(state)
         wall_us = (time.perf_counter() - t0) * 1e6
+    launches = cm.LAUNCHES - launches
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
@@ -124,6 +126,7 @@ def production_block(blocks: int = 100) -> dict:
             "idle_share": 1.0 - busy_us / wall_us if kernels else None,
             "move_kernels": sum("metropolis_moves_kernel" in e.name
                                 for e in kernels),
+            "move_launches": launches,
             "us_per_block_by_kernel": by_name}
 
 

@@ -1,0 +1,14 @@
+"""Flow training: data batches, Adam with NaN-skip, the epoch loop."""
+
+from flowstate_tpu_torch.training.data import (
+    dedup_subsample, epoch_batches, flatten_configs, sliding_window_update,
+)
+from flowstate_tpu_torch.training.train import (
+    Adam, AdamState, TrainConfig, make_optimizer, make_train_step, train,
+)
+
+__all__ = [
+    "Adam", "AdamState", "TrainConfig", "make_optimizer", "make_train_step",
+    "train", "epoch_batches", "flatten_configs", "dedup_subsample",
+    "sliding_window_update",
+]

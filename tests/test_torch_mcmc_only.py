@@ -180,7 +180,11 @@ def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
             "flowstate_tpu_torch.kernels.build, "
             "flowstate_tpu_torch.tools.n_scaling, "
             "flowstate_tpu_torch.io.aggregate, "
-            "flowstate_tpu_torch.experiments.sweep; "
+            "flowstate_tpu_torch.experiments.sweep, "
+            "flowstate_tpu_torch.experiments.algorithm1, "
+            "flowstate_tpu_torch.flows, flowstate_tpu_torch.training, "
+            "flowstate_tpu_torch.mcmc.hybrid, "
+            "flowstate_tpu_torch.analysis.rdf; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flowstate_tpu', 'matplotlib'}); "
             "print(bad); sys.exit(1 if bad else 0)")

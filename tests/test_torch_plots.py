@@ -15,8 +15,12 @@ from flowstate_tpu.analysis import plots as jplots
 from flowstate_tpu.analysis.wells import (
     calculate_well_statistics as j_well_statistics,
 )
+from flowstate_tpu.analysis.rdf import (
+    calculate_pair_correlation as j_pair_correlation,
+)
 from flowstate_tpu.analysis.wells import classify_particles as j_classify
 from flowstate_tpu_torch.analysis import plots as tplots
+from flowstate_tpu_torch.analysis.rdf import calculate_pair_correlation
 
 HALF_BOX = 5.0
 
@@ -50,6 +54,19 @@ def _call(module, name, seed, directory):
     """Call ``module.<name>`` on the inputs made from ``seed``."""
     configs = _trajectories(seed)
     fn = getattr(module, name)
+    rng = np.random.default_rng(seed)
+    if name == "plot_loss":
+        return fn(list(rng.normal(-5.0, 2.0, 17)), directory)
+    if name == "plot_frequency_heatmap":
+        return fn(configs.reshape(-1, 3, 2) - HALF_BOX, directory, HALF_BOX)
+    if name == "plot_pair_correlation":
+        r, g = j_pair_correlation(configs[0] - HALF_BOX, 3, HALF_BOX)
+        return fn(r, g, directory)
+    if name == "plot_acceptance_rate":
+        p_acc = np.cumsum(rng.random(30)) / np.arange(1, 31)
+        return fn([0.0] + list(p_acc), directory,
+                  x_values=[150 * 4 * i for i in range(31)],
+                  xlabel="MCMC Steps", base_filename="nf_acceptance_rate")
     if name == "plot_avg_free_energy":
         rng = np.random.default_rng(seed)
         return fn(rng.normal(0.3, 0.2, size=(12, 40)), directory)
@@ -65,6 +82,10 @@ def _call(module, name, seed, directory):
 
 
 FUNCTIONS = {
+    "plot_loss": "loss_plot_data.json",
+    "plot_frequency_heatmap": "frequency_heatmap_data.json",
+    "plot_pair_correlation": "pair_correlation_function_data.json",
+    "plot_acceptance_rate": "nf_acceptance_rate_data.json",
     "plot_avg_free_energy": "avg_free_energy_data.json",
     "plot_well_statistics": "well_statistics_data.json",
     "plot_avg_x_coordinate": "avg_x_coordinate_run_4_data.json",
@@ -81,6 +102,7 @@ def test_data_json_equals_the_jax_functions(name, tmp_path):
     _same(json.loads((tmp_path / "jax" / data).read_text()),
           json.loads((tmp_path / "port" / data).read_text()))
     assert [p.endswith(".svg") for p in t_out[:2]] == [True, False]
+    assert [p.endswith(".svg") for p in j_out[:2]] == [True, False]
     if name == "plot_avg_free_energy":
         np.testing.assert_allclose(t_out[2:], j_out[2:], rtol=1e-12)
 
@@ -96,3 +118,15 @@ def test_data_json_is_written_without_matplotlib(name, tmp_path,
         assert all(np.isfinite(out[2:]))
     else:
         assert out is None
+
+
+@pytest.mark.parametrize("normalization", ["reference", "physical"])
+@pytest.mark.parametrize("dr", [None, 0.1])
+def test_pair_correlation_matches_jax(normalization, dr):
+    samples = _trajectories(9, runs=1, samples=200)[0] - HALF_BOX
+    j_r, j_g = j_pair_correlation(samples, 3, HALF_BOX, dr=dr,
+                                  normalization=normalization)
+    t_r, t_g = calculate_pair_correlation(samples, 3, HALF_BOX, dr=dr,
+                                          normalization=normalization)
+    np.testing.assert_array_equal(t_r, j_r)
+    np.testing.assert_array_equal(t_g, j_g)
