@@ -11,9 +11,12 @@ energy, runs the MCMC-only experiment at the reference preset through K1
 and K2, times them, runs the NVT single-run CLI at N=1024, reads the
 card's fp32 roof with K3, runs the N-scaling tool and the parameter sweep
 with its locked CSV fan-in, checks and times Algorithm 1's flow at full
-width (K=15, hidden 256, 32 bins), and runs Algorithm 1 end to end
+width (K=15, hidden 256, 32 bins), runs Algorithm 1 end to end
 (equilibration and sample collection on K1 and K2, training, big moves
-whose proposal energies go through K2).  Each phase prints one line with its name,
+whose proposal energies go through K2), and runs Algorithm 2 at the
+reference's full width (100 chains, K=23, hidden 128, 15 bins): the host
+loop, a resume from its checkpoint, the fused runner frozen half way, and
+the mixed (reverse-KLD) loss.  Each phase prints one line with its name,
 PASS and its numbers; any failure raises and the script exits non-zero.
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -1375,6 +1378,249 @@ def phase_algorithm1(card: str, **overrides) -> dict:
             "phase_s": ph}
 
 
+# Phase 14: Algorithm 2 at the reference's full width (100 chains, K=23,
+# hidden 128, 15 bins, batch 256, 10 samples per chain a cycle), cut to
+# 20 cycles with a checkpoint every 10
+A2_CYCLES, A2_INTERVAL = 20, 5
+
+
+def a2_schedule(config, cycles: int, resumed: bool = False):
+    """K1 and K2 launches of ``cycles`` A2 cycles: K1 the equilibration
+    blocks, one per initial sample (none on resume) and one per sample of
+    a cycle; K2 the initial energies, one resync per sample, one big
+    move's proposals per cycle."""
+    eq_blocks, eq_rest = divmod(config.equilibration_steps,
+                                config.adjusting_frequency)
+    c = config.num_chains
+    initial = 0 if resumed else max(1, config.initial_training_num_samples
+                                    // c)
+    per = max(1, config.update_num_samples // c)
+    return (eq_blocks + (1 if eq_rest else 0) + initial + per * cycles,
+            1 + initial + (per + 1) * cycles)
+
+
+def same_state(a, b) -> bool:
+    """Every field of two chain states bit-equal (NaN where NaN)."""
+    import torch
+
+    from flowstate_tpu_torch.mcmc.state import TENSOR_FIELDS
+
+    return (a.seed, a.calls) == (b.seed, b.calls) and all(
+        torch.equal(torch.nan_to_num(getattr(a, f), nan=7.0),
+                    torch.nan_to_num(getattr(b, f), nan=7.0))
+        for f in TENSOR_FIELDS)
+
+
+def same_flow(a, b) -> bool:
+    """Two flows' parameters bit-equal."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                 b.parameters()))
+
+
+def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
+                     interval: int = A2_INTERVAL, **overrides) -> dict:
+    """Algorithm 2 through ``algorithm2.run`` at full width, four times:
+    (a) the host loop, ``cycles`` cycles: K1 and K2 launches against the
+    schedule, checkpoints every ``2 interval`` cycles, the JAX driver's
+    files without matplotlib, finite losses, an acceptance in (0, 1];
+    (b) ``--resume`` in the same directory for 10 cycles more: the restored
+    chain state and flow bit-equal to what (a) saved and ended with;
+    (c) the fused runner with ``freeze_after = cycles / 2``: the flow
+    bit-unchanged after the freeze, a frozen chunk's losses NaN,
+    checkpoints on the chunk edges; (d) 3 cycles with ``alpha = 0.9``:
+    the reverse-KLD term on the card, its loss and gradients finite.
+    Prints ms per cycle by phase, the device kernels and peak memory of a
+    training step at these widths, and each run's wall."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.experiments import algorithm2
+    from flowstate_tpu_torch.experiments.common import build_system
+    from flowstate_tpu_torch.flows import build_circular_flow, params_from_jax
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.training import make_optimizer, make_train_step
+    from flowstate_tpu_torch.training.cycles import (
+        make_fused_cycles, train_config,
+    )
+    from flowstate_tpu_torch.utils.checkpoint import (
+        chain_state_from_tree, restore_checkpoint,
+    )
+    from flowstate_tpu_torch.utils.config import algorithm2_config
+
+    def timed(**kw):
+        cm.LAUNCHES = cp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = algorithm2.run(device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        return res, (cm.LAUNCHES, cp.LAUNCHES), time.perf_counter() - t0
+
+    def steps(directory):
+        return sorted(os.listdir(os.path.join(directory, "checkpoints")))
+
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out:
+        def cfg(name, n, **kw):
+            return algorithm2_config(experiment_id=name, output_dir=out,
+                                     num_training_cycles=n,
+                                     checkpoint_interval=interval,
+                                     **{**overrides, **kw})
+
+        # (a) the host loop
+        config = cfg("chip_smoke_a2", cycles)
+        c, n_part = config.num_chains, config.num_particles
+        per = max(1, config.update_num_samples // c)
+
+        def a2_flow():
+            return build_circular_flow(
+                n_part, 2, config.half_box, K=config.K,
+                hidden_units=config.hidden_units, num_bins=config.num_bins,
+                num_blocks=config.n_blocks, device=DEVICE)
+
+        a, launches, wall_a = timed(config=config)
+        expected = a2_schedule(config, cycles)
+        require(launches == expected,
+                f"A2 launched K1, K2 {launches} times, schedule implies "
+                f"{expected}")
+        d = a["directory"]
+        saves = list(range(2 * interval, cycles + 1, 2 * interval))
+        require(steps(d) == [f"step_{s:08d}" for s in saves],
+                f"A2 checkpoints {steps(d)}")
+        needed = ["params.json", "experiment.log", "metrics.jsonl",
+                  "loss_plot_data.json", "production_positions.npy",
+                  "p_acc_vs_training_samples_data.json",
+                  "avg_free_energy_data.json",
+                  os.path.join(out, "evidence", "chip_smoke_a2_data.json")]
+        for s in saves:
+            needed += [f"heatmap_cycle_{s}_data.json",
+                       f"rdf_cycle_{s}_data.json",
+                       os.path.join("checkpoints", f"step_{s:08d}", "tree.pt"),
+                       os.path.join("checkpoints", f"step_{s:08d}",
+                                    "metadata.json")]
+        needed += [os.path.join("mc_runs", f"run_{i + 1:03d}",
+                                "well_statistics_data.json")
+                   for i in range(min(c, 10))]
+        missing = [f for f in needed if not os.path.exists(os.path.join(d, f))]
+        require(not missing, f"missing A2 artifacts {missing[:5]}")
+        traj = np.load(os.path.join(d, "production_positions.npy"))
+        require(traj.shape == (c, per * cycles, n_part, 2)
+                and bool(np.isfinite(traj).all()),
+                f"production positions {traj.shape}")
+        losses = np.asarray(a["loss_per_cycle"])
+        acc = a["big_move_acceptance"]
+        require(len(losses) == config.epochs * (cycles + 1)
+                and bool(np.isfinite(losses).all()), f"A2 losses {losses}")
+        require(0.0 < acc <= 1.0, f"A2 acceptance {acc}")
+
+        # (b) --resume: the saved state is what (a) ended with
+        saved, meta = restore_checkpoint(os.path.join(
+            d, "checkpoints", f"step_{saves[-1]:08d}"))
+        require(meta["cycle"] == cycles, f"checkpoint metadata {meta}")
+        back_state = chain_state_from_tree(saved["chains"], DEVICE)
+        back_flow = params_from_jax(saved["flow"], a2_flow())
+        require(same_state(back_state, a["state"]),
+                "the restored chain state differs from the saved one")
+        require(same_flow(back_flow, a["model"]),
+                "the restored flow differs from the saved one")
+        b, launches_b, wall_b = timed(config=cfg("chip_smoke_a2", cycles + 10),
+                                      resume=True)
+        expected_b = a2_schedule(config, 10, resumed=True)
+        require(b["start_cycle"] == cycles and b["cycles_run"] == 10
+                and launches_b == expected_b,
+                f"resume: start {b['start_cycle']}, {b['cycles_run']} "
+                f"cycles, launches {launches_b} (schedule {expected_b})")
+        require(f"step_{cycles + 10:08d}" in steps(d), "no resumed checkpoint")
+
+        # (c) fused, frozen after half the cycles
+        freeze = cycles // 2
+        c_cfg = cfg("chip_smoke_a2_fused", cycles)
+        f, launches_c, wall_c = timed(config=c_cfg, fused=True,
+                                      freeze_after=freeze)
+        require(launches_c == expected,
+                f"fused A2 launched {launches_c}, schedule implies "
+                f"{expected}")
+        edges, edge = [], 0          # chunks end at the freeze too
+        while edge < cycles:
+            n = min(2 * interval, cycles - edge)
+            edge += min(n, freeze - edge) if edge < freeze else n
+            edges.append(edge)
+        require(steps(f["directory"]) == [f"step_{s:08d}" for s in edges],
+                f"fused checkpoints {steps(f['directory'])}, chunk edges "
+                f"{edges}")
+        frozen = [params_from_jax(restore_checkpoint(os.path.join(
+            f["directory"], "checkpoints", f"step_{s:08d}"))[0]["flow"],
+            a2_flow()) for s in (freeze, cycles)]
+        require(same_flow(frozen[0], frozen[1])
+                and same_flow(frozen[1], f["model"]),
+                "the flow changed after the freeze")
+        require(len(f["loss_per_cycle"]) == config.epochs * (freeze + 1),
+                f"fused losses {len(f['loss_per_cycle'])}")
+        spec = build_system(c_cfg)
+        _, out_frozen = make_fused_cycles(f["model"], spec, c_cfg, 1,
+                                          train=False)(f["state"], cycles)
+        require(bool(torch.isnan(out_frozen["loss"]).all())
+                and same_flow(frozen[1], f["model"]),
+                "a frozen chunk trained the flow or gave finite losses")
+
+        # (d) the mixed loss on the card
+        m, _, wall_d = timed(config=cfg("chip_smoke_a2_alpha", 3, alpha=0.9))
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(7)
+        rkld, _ = m["model"].reverse_kld(256, g)
+        grads = torch.autograd.grad(rkld, list(m["model"].parameters()))
+        rkld = rkld.detach()
+        require(bool(np.isfinite(m["loss_per_cycle"]).all())
+                and bool(torch.isfinite(rkld))
+                and all(bool(torch.isfinite(x).all()) for x in grads),
+                f"alpha=0.9: losses {m['loss_per_cycle']}, reverse KLD "
+                f"{float(rkld)}")
+
+    # a training step at these widths: device kernels and peak memory
+    flow = a2_flow()
+    cfg_step = train_config(config)
+    opt = make_optimizer(cfg_step)
+    step = make_train_step(flow, cfg_step, opt)
+    opt_state = [opt.init(list(flow.parameters()))]
+    batch = torch.as_tensor(traj.reshape(-1, 2 * n_part)[-config.batch_size:]
+                            - config.half_box, device=DEVICE)
+
+    def train_step():
+        opt_state[0], loss = step(opt_state[0], batch)
+        return loss
+
+    train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    train = {"ms": median_ms(train_step, 5), **per_call(train_step, 1)}
+    ph = a["phase_s"]
+    ms = {k: 1e3 * ph[k] / cycles
+          for k in ("production", "training", "big_move", "evaluation")}
+    phase("14 algorithm 2", card=f"'{card}'", chains=c, K=config.K,
+          hidden=config.hidden_units, bins=config.num_bins, cycles=cycles,
+          launches_k1=launches[0], expected_k1=expected[0],
+          launches_k2=launches[1], expected_k2=expected[1],
+          acceptance=f"{acc:.4f}", final_loss=f"{losses[-1]:.4f}",
+          resumed_launches=f"{launches_b[0]},{launches_b[1]}",
+          fused_launches=f"{launches_c[0]},{launches_c[1]}",
+          fused_acceptance=f"{f['big_move_acceptance']:.4f}",
+          alpha09_loss=f"{m['loss_per_cycle'][-1]:.4f}",
+          reverse_kld=f"{float(rkld):.4f}",
+          **{f"{k}_ms_per_cycle": f"{v:.2f}" for k, v in ms.items()},
+          train_step_ms=f"{train['ms']:.3f}",
+          train_step_kernels=train["kernels"],
+          train_step_device_ms=(None if train["device_ms"] is None
+                                else f"{train['device_ms']:.3f}"),
+          train_step_peak_mib=f"{peak / 2 ** 20:.1f}",
+          wall_host_s=f"{wall_a:.2f}", wall_resume_s=f"{wall_b:.2f}",
+          wall_fused_s=f"{wall_c:.2f}", wall_alpha_s=f"{wall_d:.2f}")
+    return {"launches": launches[0], "launches_k2": launches[1],
+            "ms_per_cycle": ms, "train_step": train, "peak": peak}
+
+
 def main() -> int:
     import torch
 
@@ -1399,6 +1645,7 @@ def main() -> int:
     phase_sweep()
     phase_flow(card)
     a1 = phase_algorithm1(card)
+    a2 = phase_algorithm2(card)
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{
@@ -1408,6 +1655,7 @@ def main() -> int:
         "replaces": "flowstate_tpu/mcmc/pallas_metropolis.py:106",
         "launches": a1["launches"],
         "launches_mcmc_only": main_path["launches"],
+        "launches_a2": a2["launches"],
         "max_abs_err": err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -1421,6 +1669,7 @@ def main() -> int:
         "replaces": "flowstate_tpu/ops/pallas_pair.py:33",
         "launches": a1["launches_k2"],
         "launches_mcmc_only": main_path["launches_k2"],
+        "launches_a2": a2["launches_k2"],
         "max_abs_err": err_k2,
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

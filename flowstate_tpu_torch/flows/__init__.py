@@ -12,11 +12,14 @@ from flowstate_tpu_torch.flows.distributions import UniformParticle
 from flowstate_tpu_torch.flows.nets import (
     PeriodicFeaturesElementwise, ResidualNet,
 )
+from flowstate_tpu_torch.flows.targets import (
+    CoulombGas, DoubleWellLJ, DWNormal, SimpleLJ,
+)
 
 __all__ = [
     "NormalizingFlow", "ParamTree", "ScannedLayers", "build_circular_flow",
     "generate_samples", "tree_map", "CircularSplineCoupling",
     "create_alternating_binary_mask", "sum_except_batch", "UniformParticle",
     "PeriodicFeaturesElementwise", "ResidualNet", "params_from_jax",
-    "params_to_jax",
+    "params_to_jax", "SimpleLJ", "DoubleWellLJ", "DWNormal", "CoulombGas",
 ]

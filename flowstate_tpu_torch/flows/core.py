@@ -2,12 +2,16 @@
 
 Port of ``flowstate_tpu/flows/core.py``: ``NormalizingFlow`` (:33),
 ``ScannedLayers`` (:249), ``build_circular_flow`` (:166) and
-``generate_samples`` (:333).  The flow is an ``nn.Module`` that owns its
-parameters; ``ScannedLayers`` keeps the K layers' parameter trees stacked
-on a leading K axis, as the JAX ``lax.scan`` over stacked params does, and
-loops over them (inverse K-1 ... 0).  JAX's ``remat`` has no counterpart:
-training keeps plain autograd (the peak memory of a step is measured by
-``chip_smoke.py`` phase 12).
+``generate_samples`` (:333).  A flow built with an energy ``target``
+(``flows/targets.py``) has ``reverse_kld``, the first loss that
+differentiates the forward (sampling) direction.
+
+The flow is an ``nn.Module`` that owns its parameters; ``ScannedLayers``
+keeps the K layers' parameter trees stacked on a leading K axis, as the
+JAX ``lax.scan`` over stacked params does, and loops over them (inverse
+K-1 ... 0).  JAX's ``remat`` has no counterpart: training keeps plain
+autograd (the peak memory of a step is measured by ``chip_smoke.py``
+phase 12).
 
 Directions: ``forward`` is latent -> data (sampling), ``inverse`` data ->
 latent (log_prob).
@@ -119,12 +123,15 @@ class NormalizingFlow(nn.Module):
 
     Each layer's ``forward`` / ``inverse`` return ``(z, log_det)``.
     Sampling takes an explicit ``torch.Generator`` on the flow's device.
+    ``target`` (optional) exposes ``energy(x)`` for ``reverse_kld``.
     """
 
-    def __init__(self, base: UniformParticle, layers: Sequence[nn.Module]):
+    def __init__(self, base: UniformParticle, layers: Sequence[nn.Module],
+                 target=None):
         super().__init__()
         self.base = base
         self.layers = nn.ModuleList(layers)
+        self.target = target
 
     @property
     def device(self) -> torch.device:
@@ -167,9 +174,16 @@ class NormalizingFlow(nn.Module):
             log_q = log_q + self.base.log_prob(z)
         return -torch.mean(log_q)
 
-    def reverse_kld(self, *args, **kwargs):
-        raise NotImplementedError(
-            "reverse_kld needs flows/targets.py: ROADMAP queue 1 item 9")
+    def reverse_kld(self, num_samples: int,
+                    generator: Optional[torch.Generator] = None):
+        """Energy-based reverse KLD, the JAX form: z from the base, pushed
+        forward with log q = -sum log_det (no base term); returns
+        ``(mean(target.energy(x)) + mean(log q), x)``."""
+        if self.target is None:
+            raise ValueError("reverse_kld requires a target with .energy()")
+        x, log_det = self.forward_and_log_det(
+            self._base_sample(num_samples, generator))
+        return torch.mean(self.target.energy(x)) + torch.mean(-log_det), x
 
     # ----- sampling and density -----------------------------------------
 
@@ -233,12 +247,13 @@ class NormalizingFlow(nn.Module):
 def build_circular_flow(num_particles: int, num_dim: int, half_box: float,
                         K: int = 15, hidden_units: int = 256,
                         num_bins: int = 32, num_blocks: int = 2,
-                        net_type: str = "residual",
+                        net_type: str = "residual", target=None,
                         generator: Optional[torch.Generator] = None,
                         dtype=torch.float32, device="cuda"
                         ) -> NormalizingFlow:
     """The hybrid experiments' flow: a uniform torus base and K circular
-    couplings in one ``ScannedLayers``, on ``device``."""
+    couplings in one ``ScannedLayers``, on ``device``, with an optional
+    energy ``target``."""
     dim = num_particles * num_dim
     layer = CircularSplineCoupling(
         features=dim, num_blocks=num_blocks, hidden_units=hidden_units,
@@ -247,7 +262,7 @@ def build_circular_flow(num_particles: int, num_dim: int, half_box: float,
     layer = layer.to(device)
     scanned = ScannedLayers(layer, K, generator, dtype=dtype, device=device)
     return NormalizingFlow(UniformParticle(num_particles, num_dim, half_box),
-                           [scanned])
+                           [scanned], target)
 
 
 def generate_samples(model: NormalizingFlow, generator: torch.Generator,

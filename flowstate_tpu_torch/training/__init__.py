@@ -5,10 +5,11 @@ from flowstate_tpu_torch.training.data import (
 )
 from flowstate_tpu_torch.training.train import (
     Adam, AdamState, TrainConfig, make_optimizer, make_train_step, train,
+    train_epoch,
 )
 
 __all__ = [
     "Adam", "AdamState", "TrainConfig", "make_optimizer", "make_train_step",
-    "train", "epoch_batches", "flatten_configs", "dedup_subsample",
+    "train", "train_epoch", "epoch_batches", "flatten_configs", "dedup_subsample",
     "sliding_window_update",
 ]

@@ -1,10 +1,15 @@
-"""Flow training: forward KLD, Adam with coupled weight decay, NaN-skip.
+"""Flow training: the mixed loss, Adam with coupled weight decay, NaN-skip.
 
 Port of ``flowstate_tpu/training/train.py``: ``TrainConfig`` (:104),
 ``make_optimizer`` (:117), ``make_train_step`` (:131) and ``train``
-(:168).  The JAX step zeroes the gradients of a batch whose loss is not
-finite; optax's Adam then still advances its moments and step count, and
-only the parameter update is zeroed.  ``torch.optim.Adam`` can do neither
+(:168).  The loss is ``alpha * forward_kld + (1 - alpha) * reverse_kld``
+(:73-79), each term only where its weight is not zero; the reverse term
+draws ``reverse_num_samples`` base points per step from the generator
+``train`` is given, the same one that shuffles the epochs.
+
+The JAX step zeroes the gradients of a batch whose loss is not finite;
+optax's Adam then still advances its moments and step count, and only
+the parameter update is zeroed.  ``torch.optim.Adam`` can do neither
 (skipping ``step()`` freezes the count, stepping on zero gradients moves
 the parameters by the momentum), so the update is written out here:
 ``Adam`` follows ``optax.add_decayed_weights`` then ``optax.adam`` (eps
@@ -82,21 +87,29 @@ def make_optimizer(config: TrainConfig) -> Adam:
     return Adam(config.lr, config.weight_decay)
 
 
-def make_train_step(model, config: TrainConfig, optimizer: Adam
+def make_train_step(model, config: TrainConfig, optimizer: Adam,
+                    generator: Optional[torch.Generator] = None
                     ) -> Callable[[AdamState, torch.Tensor],
                                   Tuple[AdamState, torch.Tensor]]:
     """One batch's update of ``model``'s parameters, in place:
     ``step(opt_state, batch) -> (opt_state, loss)``.  The loss is
-    ``alpha * forward_kld``; a non-finite loss leaves the parameters where
-    they were and still advances the optimizer."""
-    if config.alpha < 1.0:
-        raise NotImplementedError(
-            "the reverse-KLD term needs flows/targets.py: ROADMAP queue 1 "
-            "item 9")
+    ``alpha * forward_kld(batch) + (1 - alpha) * reverse_kld``, the
+    reverse term's base points drawn from ``generator`` (needed when
+    ``alpha < 1``); a non-finite loss leaves the parameters where they
+    were and still advances the optimizer."""
+    if config.alpha < 1.0 and generator is None:
+        raise ValueError("the reverse-KLD term (alpha < 1) needs a "
+                         "generator for its base samples")
     params = [p for p in model.parameters()]
 
     def step(opt_state: AdamState, batch: torch.Tensor):
-        loss = config.alpha * model.forward_kld(batch)
+        loss = None
+        if config.alpha > 0.0:
+            loss = config.alpha * model.forward_kld(batch)
+        if config.alpha < 1.0:
+            rkld, _ = model.reverse_kld(config.reverse_num_samples, generator)
+            rkld = (1.0 - config.alpha) * rkld
+            loss = rkld if loss is None else loss + rkld
         grads = torch.autograd.grad(loss, params)
         finite = torch.isfinite(loss)
         grads = [torch.where(finite, torch.nan_to_num(g), torch.zeros_like(g))
@@ -107,31 +120,42 @@ def make_train_step(model, config: TrainConfig, optimizer: Adam
     return step
 
 
+def train_epoch(step, opt_state: AdamState, data: torch.Tensor,
+                generator: torch.Generator, batch_size: int
+                ) -> Tuple[AdamState, torch.Tensor]:
+    """One epoch of ``step`` over ``data`` shuffled by ``generator``;
+    returns the optimizer state and the batches' losses, on the device."""
+    losses = []
+    for batch in epoch_batches(generator, data, batch_size):
+        opt_state, loss = step(opt_state, batch)
+        losses.append(loss)
+    return opt_state, (torch.stack(losses) if losses else data.new_zeros(0))
+
+
 def train(model, data: torch.Tensor, config: TrainConfig,
           generator: torch.Generator,
           opt_state: Optional[AdamState] = None,
           epoch_callback: Optional[Callable[[int, float], None]] = None):
     """``config.epochs`` epochs over ``data`` (M, dim), on its device.
 
-    Returns ``(params, opt_state, loss_history, loss_epoch)``: the model's
-    named parameters (trained in place), the optimizer state, the loss of
-    every batch and the mean finite loss of every epoch.  Losses stay on
-    the device during an epoch and come to the host once at its end.
+    ``generator`` (on the model's device) shuffles the epochs and, when
+    ``config.alpha < 1``, draws the reverse term's base points.  Returns
+    ``(params, opt_state, loss_history, loss_epoch)``: the model's named
+    parameters (trained in place), the optimizer state, the loss of every
+    batch and the mean finite loss of every epoch.  Losses stay on the
+    device during an epoch and come to the host once at its end.
     """
     optimizer = make_optimizer(config)
     if opt_state is None:
         opt_state = optimizer.init(list(model.parameters()))
-    step = make_train_step(model, config, optimizer)
+    step = make_train_step(model, config, optimizer, generator)
     data = data.to(model.device, model.dtype)
     loss_history: List[float] = []
     loss_epoch: List[float] = []
     for epoch in range(config.epochs):
-        batches = epoch_batches(generator, data, config.batch_size)
-        losses = []
-        for batch in batches:
-            opt_state, loss = step(opt_state, batch)
-            losses.append(loss)
-        losses = torch.stack(losses).cpu() if losses else torch.zeros(0)
+        opt_state, losses = train_epoch(step, opt_state, data, generator,
+                                        config.batch_size)
+        losses = losses.cpu()
         loss_history.extend(losses.tolist())
         finite = losses[torch.isfinite(losses)]
         mean_loss = float(finite.mean()) if finite.numel() else float("nan")

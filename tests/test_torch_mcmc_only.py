@@ -184,7 +184,12 @@ def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
             "flowstate_tpu_torch.experiments.algorithm1, "
             "flowstate_tpu_torch.flows, flowstate_tpu_torch.training, "
             "flowstate_tpu_torch.mcmc.hybrid, "
-            "flowstate_tpu_torch.analysis.rdf; "
+            "flowstate_tpu_torch.analysis.rdf, "
+            "flowstate_tpu_torch.flows.targets, "
+            "flowstate_tpu_torch.training.cycles, "
+            "flowstate_tpu_torch.utils.checkpoint, "
+            "flowstate_tpu_torch.experiments.algorithm2, "
+            "flowstate_tpu_torch.tools.a2_recipe; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flowstate_tpu', 'matplotlib'}); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -3,9 +3,14 @@ package's ``make_train_step`` on the same weights and batches, in float64
 (JAX inside ``jax.enable_x64``): one step's loss and gradients, ten steps
 on ten fixed batches, and a NaN batch, which must leave the parameters
 where they were while the optimizer's moments and count advance as optax
-advances them.
+advances them.  The mixed loss (``alpha < 1``, with the reverse-KLD term
+on the ``DoubleWellLJ`` target) is held the same way on the same base
+points: one step's loss, gradients and update, and ten steps at
+Algorithm 2's lr and weight decay.  Tolerance: 1e-9 relative, 1e-12
+absolute, in float64.
 """
 
+import dataclasses
 import importlib
 
 import jax
@@ -16,12 +21,15 @@ import torch
 
 from flowstate_tpu_torch.flows import params_to_jax, tree_map
 from flowstate_tpu_torch.training import (
-    TrainConfig, epoch_batches, make_optimizer, make_train_step, train,
+    Adam, TrainConfig, epoch_batches, make_optimizer, make_train_step, train,
 )
 from flowstate_tpu_torch.training import data as tdata
 from flowstate_tpu.training import data as jdata
 
+from flowstate_tpu_torch.utils.config import algorithm2_config
+
 from test_torch_flow import BOUND, DIM, N, flows
+from test_torch_targets import TorchFixedBase, with_target_and_z
 
 # the module, which the package's ``train`` function shadows
 jtrain = importlib.import_module("flowstate_tpu.training.train")
@@ -45,8 +53,8 @@ def assert_params_equal(tm, jparams):
         np.testing.assert_allclose(a, np.asarray(b), **TOL)
 
 
-def jax_stepper(jm, jp):
-    cfg = jtrain.TrainConfig(**CFG)
+def jax_stepper(jm, jp, **cfg):
+    cfg = jtrain.TrainConfig(**(cfg or CFG))
     opt = jtrain.make_optimizer(cfg)
     step = jax.jit(jtrain.make_train_step(jm, cfg, opt))
     return step, jtrain.TrainState(jp, opt.init(jp), jax.random.key(0))
@@ -154,9 +162,102 @@ def test_numpy_helpers_match_jax(name, args):
                                   getattr(jdata, name)(*args))
 
 
-def test_reverse_kld_waits_for_targets():
+@dataclasses.dataclass(frozen=True)
+class RecordingAdam(Adam):
+    """The port's Adam, keeping each update's gradients."""
+
+    seen: list = dataclasses.field(default_factory=list)
+
+    def update(self, grads, state, params, finite):
+        self.seen.append([g.clone() for g in grads])
+        return super().update(grads, state, params, finite)
+
+
+@dataclasses.dataclass(frozen=True)
+class JaxFloat64Base:
+    """The JAX base drawing as it does, in float64: the base points the
+    port replays (``TorchFixedBase``) are then exactly JAX's."""
+
+    base: object
+
+    def sample(self, key, num_samples):
+        return self.base.sample(key, num_samples).astype(jnp.float64)
+
+    def log_prob(self, z):
+        return self.base.log_prob(z)
+
+
+def in_tree(tm, tensors):
+    """Tensors in the order of ``tm.parameters()`` as numpy leaves in the
+    order of the JAX tree."""
+    of = {id(p): t for p, t in zip(tm.parameters(), tensors)}
+    return jax.tree_util.tree_leaves(tree_map(
+        lambda p: of[id(p)].numpy(), tm.layers[0].params.tree()))
+
+
+def test_mixed_loss_step_matches_jax():
+    """One ``alpha = 0.5`` step: the loss, every gradient and the updated
+    parameters, on the same batch and the same base points."""
+    batch = batches(5, 1)[0]
+    z = np.random.default_rng(6).uniform(-BOUND, BOUND, size=(256, N * DIM))
+    cfg = dict(CFG, alpha=0.5)
+    with jax.enable_x64(True):
+        jm, jp, tm, _ = flows(2, 205)
+        jm, tm = with_target_and_z(jm, tm, z)
+        jloss, jgrads = jax.value_and_grad(
+            lambda p: 0.5 * jm.forward_kld(p, jnp.asarray(batch))
+            + 0.5 * jm.reverse_kld(p, jax.random.key(0), 256)[0])(jp)
+        jstep, jstate = jax_stepper(jm, jp, **cfg)
+        jstate, jstep_loss = jstep(jstate, jnp.asarray(batch))
+    opt = RecordingAdam(cfg["lr"], cfg["weight_decay"])
+    step = make_train_step(tm, TrainConfig(**cfg), opt, torch.Generator())
+    state, loss = step(opt.init(list(tm.parameters())),
+                       torch.as_tensor(batch))
+    np.testing.assert_allclose(loss.item(), float(jloss), **TOL)
+    np.testing.assert_allclose(loss.item(), float(jstep_loss), **TOL)
+    ours = in_tree(tm, opt.seen[0])
+    theirs = jax.tree_util.tree_leaves(jgrads[0])
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        np.testing.assert_allclose(a, np.asarray(b), **TOL)
+    assert_params_equal(tm, jstate.params)
+    assert state.count == 1
+
+
+def test_ten_mixed_steps_at_the_a2_preset_match_jax():
+    """Ten ``alpha = 0.9`` steps at Algorithm 2's lr and weight decay,
+    step by step: JAX draws each step's base points from its key, the
+    port replays them."""
+    data = batches(7, 10)
+    a2 = algorithm2_config()
+    cfg = dict(batch_size=16, lr=a2.lr, weight_decay=a2.weight_decay,
+               alpha=0.9)
+    with jax.enable_x64(True):
+        jm, jp, tm, _ = flows(2, 206)
+        jm, tm = with_target_and_z(jm, tm, np.zeros((0, N * DIM)))
+        jm = dataclasses.replace(jm, base=JaxFloat64Base(jm.base.base))
+        jstep, jstate = jax_stepper(jm, jp, **cfg)
+        # the base points of JAX's steps: its key, split as the step does
+        key, zs = jstate.key, []
+        for _ in data:
+            key, k_loss = jax.random.split(key)
+            zs.append(np.asarray(jm.base.sample(k_loss, 256)))
+        opt = make_optimizer(TrainConfig(**cfg))
+        step = make_train_step(tm, TrainConfig(**cfg), opt,
+                               torch.Generator())
+        state = opt.init(list(tm.parameters()))
+        for b, z in zip(data, zs):
+            tm.base = TorchFixedBase(tm.base.base, z)
+            jstate, jloss = jstep(jstate, jnp.asarray(b))
+            state, loss = step(state, torch.as_tensor(b))
+            np.testing.assert_allclose(loss.item(), float(jloss), **TOL)
+            assert_params_equal(tm, jstate.params)
+    assert state.count == 10
+
+
+def test_reverse_term_needs_a_generator():
     with jax.enable_x64(True):
         tm = flows(2, 204)[2]
-    opt = make_optimizer(TrainConfig(alpha=0.5))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_train_step(tm, TrainConfig(alpha=0.5), opt)
+    cfg = TrainConfig(alpha=0.5)
+    with pytest.raises(ValueError, match="generator"):
+        make_train_step(tm, cfg, make_optimizer(cfg))
