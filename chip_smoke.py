@@ -1388,15 +1388,17 @@ def a2_schedule(config, cycles: int, resumed: bool = False):
     """K1 and K2 launches of ``cycles`` A2 cycles: K1 the equilibration
     blocks, one per initial sample (none on resume) and one per sample of
     a cycle; K2 the initial energies, one resync per sample, one big
-    move's proposals per cycle."""
+    move's proposals per cycle (N // k blocked moves' with blocked_k)."""
     eq_blocks, eq_rest = divmod(config.equilibration_steps,
                                 config.adjusting_frequency)
     c = config.num_chains
     initial = 0 if resumed else max(1, config.initial_training_num_samples
                                     // c)
     per = max(1, config.update_num_samples // c)
+    moves = (max(1, config.num_particles // config.blocked_k)
+             if config.blocked_k > 0 else 1)
     return (eq_blocks + (1 if eq_rest else 0) + initial + per * cycles,
-            1 + initial + (per + 1) * cycles)
+            1 + initial + (per + moves) * cycles)
 
 
 def same_state(a, b) -> bool:
@@ -1621,6 +1623,319 @@ def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
             "ms_per_cycle": ms, "train_step": train, "peak": peak}
 
 
+# Phase 15: the blocked moves at the reference bench's width (bench.py:
+# 338-385): N=8, k=1, the conditional flow at K=6, hidden 128, 16 bins,
+# the Fourier context to m_max=3 (98 features), 16,384 chains
+BLOCKED_FLOW = dict(K=6, hidden_units=128, num_bins=16)
+BLOCKED_N, BLOCKED_MODES = 8, 3
+# Algorithm 1 and 2 with blocked_k=1 at those widths, cut to 64 chains
+BLOCKED_A1 = dict(num_particles=8, blocked_k=1, blocked_K=6,
+                  hidden_units=128, num_bins=16, num_chains=64, epochs=1,
+                  batch_size=512, initial_training_num_samples=64 * 32,
+                  big_move_attempts=20, big_move_interval=150,
+                  num_samples_for_analysis=1000)
+BLOCKED_A2 = dict(num_particles=8, blocked_k=1, blocked_K=6,
+                  hidden_units=128, num_bins=16, num_chains=64, epochs=1,
+                  batch_size=256, initial_training_num_samples=640,
+                  update_num_samples=640, equilibration_steps=2000,
+                  adjusting_frequency=1000, checkpoint_interval=1,
+                  num_samples_for_analysis=1000,
+                  num_samples_for_free_energy=40)
+BLOCKED_A2_CYCLES = 4
+# the paired pass against the separate ones, in float32: six spline
+# layers, each fed the last, with the nets' products batched in one and
+# not in the other, part by a few ulps of the box (16.3 wide: an ulp is
+# 1.9e-6)
+BLOCKED_POS_ATOL = 1e-4
+
+
+def perturbed_tree(flow, seed: int):
+    """A numpy tree in the JAX layout of ``flow``'s parameters, far from
+    the identity init: each linear's ``w`` N(0, 0.5 / sqrt(fan_in)), its
+    ``b`` N(0, 0.1), the unconditional splines' parameters N(0, 0.3)."""
+    import numpy as np
+
+    from flowstate_tpu_torch.flows import params_to_jax
+
+    rng = np.random.default_rng(seed)
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, name) for v in tree)
+        if name == "w":
+            return rng.normal(0.0, 0.5 / np.sqrt(tree.shape[-2]), tree.shape)
+        return rng.normal(0.0, 0.1 if name == "b" else 0.3, tree.shape)
+
+    return walk(params_to_jax(flow))
+
+
+def phase_blocked(card: str, chains: int = 16384, a1: dict = None,
+                  a2: dict = None, a2_cycles: int = BLOCKED_A2_CYCLES
+                  ) -> dict:
+    """The blocked moves on the card.  (a) At the bench's width with a
+    perturbed flow: the paired and the separate passes make the same
+    proposals and the same decisions (R2), K2's proposal energies against
+    its plain version, rejected chains bit-unchanged; ms per blocked move
+    by CUDA events, device kernels, device ms and the idle share by the
+    profiler, peak memory, blocked moves per second.  (b) Algorithm 1 with
+    ``blocked_k=1`` through ``algorithm1.run``: K1 and K2 launches against
+    the schedule (one K1 and N // k K2 per round), a finite loss,
+    acceptance in (0, 1], ``df_particle`` and the sector counts.  (c)
+    Algorithm 2's host loop with ``blocked_k=1``: launches against the
+    schedule, a resume from the mid-run checkpoint bit-equal to the
+    uninterrupted run, ``fused=True`` refused."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.experiments import algorithm1, algorithm2
+    from flowstate_tpu_torch.flows import (
+        build_conditional_circular_flow, params_from_jax,
+    )
+    from flowstate_tpu_torch.mcmc import blocked as mb
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.mcmc import (
+        init_chain_state, resync_energy, run_moves_auto,
+    )
+    from flowstate_tpu_torch.mcmc.initialise import init_split_wells
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.training import (
+        Adam, blocked_pairs, make_blocked_train_step,
+    )
+    from flowstate_tpu_torch.utils.config import (
+        algorithm1_config, algorithm2_config,
+    )
+
+    # (a) the bench's width -------------------------------------------
+    n, k = BLOCKED_N, 1
+    spec = reference_spec(n)
+    hb = spec.box.size_x / 2.0
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(21)
+    flow = build_conditional_circular_flow(
+        k, 2, hb, context_features=mb.fourier_context_dim(BLOCKED_MODES),
+        generator=g, device=DEVICE, **BLOCKED_FLOW)
+    params_from_jax(perturbed_tree(flow, 22), flow)
+
+    def context_fn(rest, positions):
+        return mb.fourier_context(rest, positions, hb, BLOCKED_MODES)
+
+    pos, _ = init_split_wells(chains, n, 0.03)
+    state = init_chain_state(spec, torch.as_tensor(pos, device=DEVICE), 23,
+                             0.65)
+    state = resync_energy(spec, run_moves_auto(spec, 1.0, state, 200))
+    perm = mb.random_block_perm(chains, n, g, DEVICE)
+    z = flow.base_sample(chains, g)
+    u = torch.rand(chains, generator=g, device=DEVICE)
+    with torch.no_grad():
+        moves = [mb.apply_blocked_moves(spec, 1.0, state, perm, z, u, flow,
+                                        hb, k, context_fn, paired=p)
+                 for p in (True, False)]
+        ctx = context_fn(perm[:, k:], state.positions)
+        old = (mb.select_particles(perm[:, :k], state.positions)
+               - hb).reshape(chains, -1)
+        props, lq = [], []
+        for p in (True, False):
+            new, lq_new, lq_old = flow.push_forward_with_old(z, old, ctx, p)
+            props.append(mb.scatter_block(
+                perm[:, :k], new.reshape(chains, k, 2) + hb,
+                state.positions))
+            lq.append((lq_new, lq_old))
+    res = moves[0]
+    prop_err = float((props[0] - props[1]).abs().max())
+    lq_err = max(float(((a - b).abs() / (1.0 + b.abs())).max())
+                 for a, b in zip(lq[0], lq[1]))
+    require(prop_err <= BLOCKED_POS_ATOL and lq_err <= FLOW_RTOL,
+            f"paired vs separate passes: proposals {prop_err}, log q "
+            f"{lq_err} relative")
+    # the move's energies are K2's on these proposals, and K2 holds to
+    # its plain version on them
+    for m, q in zip(moves, props):
+        e_k, _ = cp.total_energy_virial_kernel(spec, q)
+        require(torch.equal(m.proposal_energy, e_k),
+                "the move's proposal energies are not K2's")
+    e_plain, _ = cp.total_energy_virial_plain(spec, props[0])
+    pair_err = compare_pair(spec, props[0], "blocked proposals",
+                            overlaps=torch.nonzero(torch.isinf(
+                                e_plain)).flatten().tolist())
+    # R2: the decisions follow the ratios; the two passes' decisions differ
+    # only where u lies between their acceptance probabilities
+    p0, p1 = (torch.exp(m.ratio_log) for m in moves)
+    require(all(torch.equal(m.accepted, u < torch.exp(m.ratio_log))
+                for m in moves), "accept flags do not follow the ratios")
+    near = ((torch.minimum(p0, p1) - NEAR_TIE <= u)
+            & (u <= torch.maximum(p0, p1) + NEAR_TIE))
+    differ = moves[0].accepted != moves[1].accepted
+    require(not bool((differ & ~near).any()),
+            f"paired and separate passes decide {int(differ.sum())} chains "
+            f"differently, {int((differ & ~near).sum())} not near a tie")
+    rej = ~res.accepted
+    require(torch.equal(res.state.positions[rej], state.positions[rej])
+            and torch.equal(res.state.energy[rej], state.energy[rej]),
+            "a rejected chain moved")
+    acc_a = float(res.accepted.float().mean())
+    require(0.0 < acc_a < 1.0, f"bench-width acceptance {acc_a}")
+    require(not bool(torch.isnan(res.ratio_log).any()), "NaN log-ratio")
+
+    def one_move():
+        return mb.blocked_big_moves(spec, 1.0, state, flow, hb, k, g,
+                                    context_fn)
+
+    ms = median_ms(one_move, 7)
+    prof = per_call(one_move, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    one_move()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    idle = (None if prof["device_ms"] is None
+            else 1.0 - prof["device_ms"] / ms)
+    bench = {"ms": ms, **prof, "idle_share": idle,
+             "peak_mib": peak / 2 ** 20,
+             "peak_over_base_mib": (peak - base) / 2 ** 20,
+             "blocked_moves_per_s": chains / (ms / 1e3),
+             "acceptance": acc_a}
+
+    # a conditional training step at batch 512, at this depth and at the
+    # recipe's K=10, on blocks cut from the chains
+    steps = {}
+    for depth in (BLOCKED_FLOW["K"], 10):
+        f = build_conditional_circular_flow(
+            k, 2, hb, context_features=mb.fourier_context_dim(BLOCKED_MODES),
+            generator=g, device=DEVICE, **{**BLOCKED_FLOW, "K": depth})
+        params_from_jax(perturbed_tree(f, 24), f)
+        adam = Adam(1e-4)
+        step = make_blocked_train_step(f, adam)
+        opt_state = [adam.init(list(f.parameters()))]
+        batch = blocked_pairs(g, state.positions[:512], k, hb, context_fn)
+
+        def train_step():
+            opt_state[0], loss = step(opt_state[0], batch)
+            return loss
+
+        require(bool(torch.isfinite(train_step())),
+                "blocked training step: non-finite loss")
+        steps[depth] = {"ms": median_ms(train_step, 5),
+                        **per_call(train_step, 1)}
+
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out:
+        # (b) Algorithm 1 -----------------------------------------------
+        cfg1 = algorithm1_config(experiment_id="chip_smoke_blocked_a1",
+                                 output_dir=out, **(a1 or BLOCKED_A1))
+        bpr = max(1, cfg1.num_particles // cfg1.blocked_k)
+        eq_blocks, eq_rest = divmod(cfg1.equilibration_steps,
+                                    cfg1.adjusting_frequency)
+        samples = cfg1.initial_training_num_samples // cfg1.num_chains
+        rounds = cfg1.big_move_attempts
+        expected1 = (eq_blocks + (1 if eq_rest else 0) + samples + rounds,
+                     1 + samples + bpr * rounds)
+        cm.LAUNCHES = cp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        r1 = algorithm1.run(cfg1, device=DEVICE)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        launches1 = (cm.LAUNCHES, cp.LAUNCHES)
+        require(launches1 == expected1,
+                f"blocked A1 launched K1, K2 {launches1} times, schedule "
+                f"implies {expected1}")
+        with open(os.path.join(out, "evidence",
+                               "chip_smoke_blocked_a1_data.json")) as f:
+            ev1 = json.load(f)
+        loss1, acc1 = r1["final_loss"], r1["big_move_acceptance"]
+        require(loss1 is not None and np.isfinite(loss1)
+                and 0.0 < acc1 <= 1.0 and np.isfinite(r1["df_particle"])
+                and sum(v for key, v in ev1["sector_counts"].items()
+                        if key != "burn_frac") > 0
+                and os.path.exists(os.path.join(
+                    r1["directory"], "training_rounds",
+                    "initial_training_round",
+                    "initial_model_blocked_conditional.pkl")),
+                f"blocked A1: loss {loss1}, acceptance {acc1}, df_particle "
+                f"{r1['df_particle']}, sectors {ev1['sector_counts']}")
+
+        # (c) Algorithm 2's host loop -----------------------------------
+        cfg2 = algorithm2_config(experiment_id="chip_smoke_blocked_a2",
+                                 output_dir=out, num_training_cycles=a2_cycles,
+                                 **(a2 or BLOCKED_A2))
+        cm.LAUNCHES = cp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        r2 = algorithm2.run(cfg2, device=DEVICE)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        launches2 = (cm.LAUNCHES, cp.LAUNCHES)
+        expected2 = a2_schedule(cfg2, a2_cycles)
+        require(launches2 == expected2,
+                f"blocked A2 launched K1, K2 {launches2} times, schedule "
+                f"implies {expected2}")
+        acc2 = r2["big_move_acceptance"]
+        require(0.0 < acc2 <= 1.0
+                and bool(np.isfinite(r2["loss_per_cycle"]).all()),
+                f"blocked A2: acceptance {acc2}, losses "
+                f"{r2['loss_per_cycle']}")
+        # resume from the mid-run checkpoint to the end: bit-equal
+        mid = a2_cycles // 2
+        ckpts = os.path.join(r2["directory"], "checkpoints")
+        for name in os.listdir(ckpts):
+            if int(name[5:]) > mid:
+                shutil.rmtree(os.path.join(ckpts, name))
+        cm.LAUNCHES = cp.LAUNCHES = 0
+        r3 = algorithm2.run(cfg2, resume=True, device=DEVICE)
+        torch.cuda.synchronize()
+        launches3 = (cm.LAUNCHES, cp.LAUNCHES)
+        expected3 = a2_schedule(cfg2, a2_cycles - mid, resumed=True)
+        require(r3["start_cycle"] == mid and launches3 == expected3,
+                f"blocked A2 resume: start {r3['start_cycle']}, launches "
+                f"{launches3} (schedule {expected3})")
+        require(same_state(r3["state"], r2["state"])
+                and same_flow(r3["model"], r2["model"]),
+                "the resumed blocked A2 run differs from the uninterrupted "
+                "one")
+        try:
+            algorithm2.run(cfg2, fused=True, device=DEVICE)
+        except ValueError as e:
+            require("host-driven" in str(e), f"fused blocked A2: {e}")
+        else:
+            raise AssertionError("fused blocked A2 did not raise")
+
+    print("  bench: " + " ".join(
+        f"{key}={v:.4f}" if isinstance(v, float) else f"{key}={v}"
+        for key, v in bench.items()), flush=True)
+    phase("15 blocked moves", card=f"'{card}'", chains=chains, n=n, k=k,
+          K=BLOCKED_FLOW["K"], hidden=BLOCKED_FLOW["hidden_units"],
+          bins=BLOCKED_FLOW["num_bins"], acceptance=f"{acc_a:.4f}",
+          proposal_err=f"{prop_err:.3g}", log_q_rel_err=f"{lq_err:.3g}",
+          pair_err=f"{pair_err:.3g}",
+          decisions_differ=int(differ.sum()),
+          ms_per_move=f"{ms:.3f}", kernels_per_move=prof["kernels"],
+          device_ms_per_move=(None if prof["device_ms"] is None
+                              else f"{prof['device_ms']:.3f}"),
+          idle_share=None if idle is None else f"{idle:.3f}",
+          peak_mib=f"{bench['peak_mib']:.1f}",
+          blocked_moves_per_s=f"{bench['blocked_moves_per_s']:.1f}",
+          **{f"train_step_K{d}_ms": f"{v['ms']:.3f}" for d, v in
+             steps.items()},
+          **{f"train_step_K{d}_kernels": v["kernels"] for d, v in
+             steps.items()},
+          **{f"train_step_K{d}_device_ms": (
+              None if v["device_ms"] is None else f"{v['device_ms']:.3f}")
+             for d, v in steps.items()},
+          a1_launches=f"{launches1[0]},{launches1[1]}",
+          a1_loss=f"{loss1:.4f}", a1_acceptance=f"{acc1:.4f}",
+          a1_df_particle=f"{r1['df_particle']:.4f}",
+          a1_phase_s=",".join(f"{key}:{v:.2f}"
+                              for key, v in r1["phase_s"].items()),
+          a1_wall_s=f"{wall1:.2f}",
+          a2_launches=f"{launches2[0]},{launches2[1]}",
+          a2_resumed_launches=f"{launches3[0]},{launches3[1]}",
+          a2_acceptance=f"{acc2:.4f}", a2_wall_s=f"{wall2:.2f}")
+    return {"bench": bench, "train_step": steps, "launches_a1": launches1,
+            "launches_a2": launches2, "max_abs_err": pair_err}
+
+
 def main() -> int:
     import torch
 
@@ -1646,6 +1961,7 @@ def main() -> int:
     phase_flow(card)
     a1 = phase_algorithm1(card)
     a2 = phase_algorithm2(card)
+    blocked = phase_blocked(card)
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{
@@ -1656,6 +1972,8 @@ def main() -> int:
         "launches": a1["launches"],
         "launches_mcmc_only": main_path["launches"],
         "launches_a2": a2["launches"],
+        "launches_blocked": {"a1": blocked["launches_a1"][0],
+                             "a2": blocked["launches_a2"][0]},
         "max_abs_err": err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -1670,6 +1988,8 @@ def main() -> int:
         "launches": a1["launches_k2"],
         "launches_mcmc_only": main_path["launches_k2"],
         "launches_a2": a2["launches_k2"],
+        "launches_blocked": {"a1": blocked["launches_a1"][1],
+                             "a2": blocked["launches_a2"][1]},
         "max_abs_err": err_k2,
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -15,6 +15,13 @@ Port of ``flowstate_tpu/experiments/algorithm1.py``:
            proposal energies are one K2 launch; then the acceptance
            history, well statistics and ΔF estimators
 
+With ``blocked_k > 0`` (the JAX driver's :128-162, 205-242) Phase C trains
+the conditional flow of the blocked moves instead (depth ``blocked_K``,
+the Fourier context with ``m_max = blocked_context_modes``; no flow
+samples, since it has no context-free sampler), and each round of Phase D
+is one K1 launch and then ``max(1, N // blocked_k)`` blocked moves, each
+one paired flow pass and one K2 launch (``mcmc/blocked.py``).
+
 The testing loop is one Python loop; its results follow the JAX
 package's fused and host-loop paths, which give equal results
 (``fused_testing`` is kept as a config field and changes nothing here).
@@ -46,15 +53,16 @@ from flowstate_tpu_torch.analysis.wells import (
     calculate_well_statistics, classify_particles,
 )
 from flowstate_tpu_torch.experiments.common import (
-    _thin, build_system, init_and_equilibrate, plot_wells, sector_counts,
-    setup_experiment, write_evidence,
+    _thin, build_blocked_flow, build_system, init_and_equilibrate,
+    plot_wells, sector_counts, setup_experiment, write_evidence,
 )
 from flowstate_tpu_torch.flows import build_circular_flow
+from flowstate_tpu_torch.mcmc.blocked import blocked_big_moves
 from flowstate_tpu_torch.mcmc.cuda_metropolis import (
     run_moves_auto, run_production_kernel,
 )
 from flowstate_tpu_torch.mcmc.hybrid import apply_big_moves, to_box_frame
-from flowstate_tpu_torch.training import TrainConfig, train
+from flowstate_tpu_torch.training import TrainConfig, train, train_blocked
 from flowstate_tpu_torch.utils.config import ExperimentConfig, algorithm1_config
 
 
@@ -83,31 +91,84 @@ def _sync(device: torch.device) -> None:
 
 
 def run_testing(config: ExperimentConfig, spec, state, model,
-                generator: torch.Generator):
+                generator: torch.Generator, context_fn=None):
     """Phase D's rounds: per round one K1 launch of ``big_move_interval``
     moves for all chains, then one flow proposal per chain and its
-    Metropolis-Hastings verdict (one K2 launch).  Returns the final state
-    and, on the host, the (R, C) accept flags and (R, C, N, 2) positions
-    after every round."""
+    Metropolis-Hastings verdict (one K2 launch), or with ``blocked_k > 0``
+    ``N // blocked_k`` blocked moves of ``model``, a conditional flow on
+    ``context_fn``'s context (one K2 launch each).  Returns the final
+    state and, on the host, the (R, C) accept flags (the blocked moves'
+    accepted fraction per round) and (R, C, N, 2) positions after every
+    round."""
     c, rounds = config.num_chains, config.big_move_attempts
     dev = state.device
-    accepted = torch.zeros((rounds, c), dtype=torch.bool, device=dev)
+    blocked = config.blocked_k > 0
+    bpr = max(1, config.num_particles // config.blocked_k) if blocked else 1
+    accepted = torch.zeros((rounds, c), device=dev,
+                           dtype=torch.float32 if blocked else torch.bool)
     positions = torch.empty((rounds, *state.positions.shape),
                             dtype=state.positions.dtype, device=dev)
     for r in range(rounds):
         state = run_moves_auto(spec, config.beta, state,
                                config.big_move_interval)
-        with torch.no_grad():
-            prop_flat, log_q_new = model.sample_and_log_prob(c, generator)
-        u = torch.rand(c, generator=generator, device=dev)
-        result = apply_big_moves(
-            spec, config.beta, state,
-            to_box_frame(prop_flat, config.num_particles, config.half_box),
-            log_q_new, model, config.half_box, u)
-        state = result.state
-        accepted[r] = result.accepted
+        if blocked:
+            for _ in range(bpr):
+                result = blocked_big_moves(
+                    spec, config.beta, state, model, config.half_box,
+                    config.blocked_k, generator, context_fn)
+                state = result.state
+                accepted[r] += result.accepted
+            accepted[r] /= bpr
+        else:
+            with torch.no_grad():
+                prop_flat, log_q_new = model.sample_and_log_prob(c,
+                                                                 generator)
+            u = torch.rand(c, generator=generator, device=dev)
+            result = apply_big_moves(
+                spec, config.beta, state,
+                to_box_frame(prop_flat, config.num_particles,
+                             config.half_box),
+                log_q_new, model, config.half_box, u)
+            state = result.state
+            accepted[r] = result.accepted
         positions[r] = state.positions
     return state, accepted.cpu().numpy(), positions.cpu().numpy()
+
+
+def train_global_flow(config: ExperimentConfig, train_configs, train_cfg,
+                      nf_dir: str, figures: list, metrics, logger, device):
+    """Phase C's global flow: built, trained on the centred
+    configurations, saved, and its samples' heatmap and pair correlation
+    drawn.  Returns the flow and its epochs' losses."""
+    model = build_circular_flow(
+        config.num_particles, config.num_dim, config.half_box, K=config.K,
+        hidden_units=config.hidden_units, num_bins=config.num_bins,
+        num_blocks=config.n_blocks, net_type=config.net_type,
+        generator=_generator(device, config.master_seed + 1), device=device)
+    logger.info("Model prepared with %d particles and %d dimensions!",
+                config.num_particles, config.num_dim)
+    data = torch.as_tensor(
+        train_configs.reshape(len(train_configs), -1).astype(np.float32),
+        device=device)
+    _, _, _, loss_epoch = train(
+        model, data, train_cfg, _generator(device, config.master_seed + 2),
+        epoch_callback=lambda e, l: metrics.log("train_epoch", epoch=e,
+                                                loss=l))
+    figures.append(plot_loss(loss_epoch, nf_dir))
+    model.save(os.path.join(nf_dir,
+                            "initial_model_circularspline_res_dense.pkl"))
+    with torch.no_grad():
+        eval_samples = model.sample(
+            min(config.num_samples_for_analysis, 50000),
+            _generator(device, 99))
+    eval_np = eval_samples.cpu().numpy().reshape(-1, config.num_particles, 2)
+    np.save(os.path.join(nf_dir, "samples.npy"), eval_np + config.half_box)
+    figures.append(plot_frequency_heatmap(eval_np, nf_dir, config.half_box))
+    r_vals, g_r = calculate_pair_correlation(
+        eval_np, config.num_particles, config.half_box,
+        dr=config.half_box / 50)
+    figures.append(plot_pair_correlation(r_vals, g_r, nf_dir))
+    return model, loss_epoch
 
 
 def run(config: ExperimentConfig, premade_data_path: str = None,
@@ -118,11 +179,8 @@ def run(config: ExperimentConfig, premade_data_path: str = None,
     ((T, N, 2), under ``configs`` or its first array) used instead of
     Phase B.
     """
-    if config.blocked_k > 0:
-        raise NotImplementedError(
-            "blocked conditional moves (blocked_k > 0) are not ported yet: "
-            "ROADMAP queue 1 item 10")
     device = torch.device(device)
+    blocked = config.blocked_k > 0
     phase_s = {}
     t0 = time.perf_counter()
     directory, logger, metrics = setup_experiment(config)
@@ -161,34 +219,30 @@ def run(config: ExperimentConfig, premade_data_path: str = None,
     train_cfg = TrainConfig(batch_size=config.batch_size,
                             epochs=config.epochs, lr=config.lr,
                             weight_decay=config.weight_decay)
-    model = build_circular_flow(
-        config.num_particles, config.num_dim, config.half_box, K=config.K,
-        hidden_units=config.hidden_units, num_bins=config.num_bins,
-        num_blocks=config.n_blocks, net_type=config.net_type,
-        generator=_generator(device, config.master_seed + 1), device=device)
-    logger.info("Model prepared with %d particles and %d dimensions!",
-                config.num_particles, config.num_dim)
-    data = torch.as_tensor(
-        train_configs.reshape(len(train_configs), -1).astype(np.float32),
-        device=device)
-    _, _, _, loss_epoch = train(
-        model, data, train_cfg, _generator(device, config.master_seed + 2),
-        epoch_callback=lambda e, l: metrics.log("train_epoch", epoch=e,
-                                                loss=l))
-    figures.append(plot_loss(loss_epoch, nf_dir))
-    model.save(os.path.join(nf_dir,
-                            "initial_model_circularspline_res_dense.pkl"))
-    with torch.no_grad():
-        eval_samples = model.sample(
-            min(config.num_samples_for_analysis, 50000),
-            _generator(device, 99))
-    eval_np = eval_samples.cpu().numpy().reshape(-1, config.num_particles, 2)
-    np.save(os.path.join(nf_dir, "samples.npy"), eval_np + config.half_box)
-    figures.append(plot_frequency_heatmap(eval_np, nf_dir, config.half_box))
-    r_vals, g_r = calculate_pair_correlation(
-        eval_np, config.num_particles, config.half_box,
-        dr=config.half_box / 50)
-    figures.append(plot_pair_correlation(r_vals, g_r, nf_dir))
+    context_fn = None
+    if blocked:
+        model, context_fn = build_blocked_flow(
+            config, _generator(device, config.master_seed + 1), device)
+        logger.info("Conditional model prepared: k=%d block of %d "
+                    "particles", config.blocked_k, config.num_particles)
+        logger.info("conditional flow K=blocked_K=%d; K=%d unused",
+                    config.blocked_K, config.K)
+        box_frame = torch.as_tensor(
+            (train_configs + config.half_box).astype(np.float32),
+            device=device)
+        _, _, loss_epoch = train_blocked(
+            model, box_frame, config.blocked_k, config.half_box, train_cfg,
+            _generator(device, config.master_seed + 2),
+            context_fn=context_fn)
+        for e, l in enumerate(loss_epoch):
+            metrics.log("train_epoch", epoch=e, loss=l)
+        figures.append(plot_loss(loss_epoch, nf_dir))
+        model.save(os.path.join(nf_dir,
+                                "initial_model_blocked_conditional.pkl"))
+    else:
+        model, loss_epoch = train_global_flow(
+            config, train_configs, train_cfg, nf_dir, figures, metrics,
+            logger, device)
     _sync(device)
     phase_s["C"] = time.perf_counter() - t
 
@@ -199,13 +253,20 @@ def run(config: ExperimentConfig, premade_data_path: str = None,
     if config.testing:
         t = time.perf_counter()
         c = config.num_chains
-        logger.info("testing phase: %d rounds of %d local moves and one big "
-                    "move (fused_testing=%s changes nothing in this port)",
-                    config.big_move_attempts, config.big_move_interval,
-                    config.fused_testing)
+        if blocked:
+            logger.info("testing phase: %d rounds of %d local moves and %d "
+                        "blocked moves of k=%d", config.big_move_attempts,
+                        config.big_move_interval,
+                        max(1, config.num_particles // config.blocked_k),
+                        config.blocked_k)
+        else:
+            logger.info("testing phase: %d rounds of %d local moves and one "
+                        "big move (fused_testing=%s changes nothing in this "
+                        "port)", config.big_move_attempts,
+                        config.big_move_interval, config.fused_testing)
         state, accepted_rounds, positions_rounds = run_testing(
             config, spec, state, model,
-            _generator(device, config.master_seed + 3))
+            _generator(device, config.master_seed + 3), context_fn)
         phase_s["D_rounds"] = time.perf_counter() - t
         testing_positions = list(positions_rounds)
         acc_cum = np.cumsum(accepted_rounds.sum(axis=1))

@@ -31,8 +31,15 @@ Where it differs from the JAX driver:
 * the checkpoint holds the train set, so a resumed cumulative run trains
   on what it had (ROADMAP R7: JAX restarts it from zeros), and the host
   loop writes it at the end of its cycle, after the big move (ROADMAP
-  R8: JAX writes it before, and a resumed run skips that cycle's move);
-* blocked conditional moves (``blocked_k > 0``) are not ported yet.
+  R8: JAX writes it before, and a resumed run skips that cycle's move).
+
+With ``blocked_k > 0`` (the JAX driver's :57-63, 101-140, 283, 296-312)
+the flow is the blocked moves' conditional flow (``mcmc/blocked.py``,
+depth ``blocked_K``, no energy target), every (re)training is
+``train_blocked``, a cycle's big move is ``max(1, N // blocked_k)``
+blocked moves drawn from the cycle's move generator, and no flow samples
+are evaluated.  As in JAX it runs in the host loop only (``fused=True``
+raises) and with the pure forward-KLD loss (``alpha < 1`` raises).
 
     python -m flowstate_tpu_torch.experiments.algorithm2 --experiment_id X \\
         [--resume] [--fused] [--freeze_after 500] --device cuda
@@ -55,18 +62,21 @@ from flowstate_tpu_torch.analysis.plots import (
 from flowstate_tpu_torch.analysis.rdf import calculate_pair_correlation
 from flowstate_tpu_torch.analysis.wells import calculate_well_statistics
 from flowstate_tpu_torch.experiments.common import (
-    _thin, build_system, init_and_equilibrate, plot_wells, sector_counts,
-    setup_experiment, write_evidence,
+    _thin, build_blocked_flow, build_system, init_and_equilibrate,
+    plot_wells, sector_counts, setup_experiment, write_evidence,
 )
 from flowstate_tpu_torch.flows import (
     DoubleWellLJ, build_circular_flow, params_from_jax,
 )
+from flowstate_tpu_torch.mcmc.blocked import blocked_big_moves
 from flowstate_tpu_torch.mcmc.cuda_metropolis import run_production_kernel
 from flowstate_tpu_torch.mcmc.hybrid import to_centered
-from flowstate_tpu_torch.training import sliding_window_update, train
+from flowstate_tpu_torch.training import (
+    sliding_window_update, train, train_blocked,
+)
 from flowstate_tpu_torch.training.cycles import (
-    TRAIN_SEED_OFFSET, big_move, check_fused, cycle_generator,
-    make_fused_cycles, train_config,
+    MOVE_SEED_OFFSET, TRAIN_SEED_OFFSET, big_move, check_fused,
+    cycle_generator, make_fused_cycles, train_config,
 )
 from flowstate_tpu_torch.utils.checkpoint import (
     chain_state_from_tree, experiment_tree, latest_checkpoint,
@@ -90,12 +100,12 @@ def run(config: ExperimentConfig, resume: bool = False, fused: bool = False,
     driver's, the acceptance and loss histories, the wall seconds of each
     phase (``phase_s``), the cycle it started at, and the final ``state``
     and ``model``."""
-    if config.blocked_k > 0:
-        raise NotImplementedError(
-            "blocked conditional moves (blocked_k > 0) are not ported yet: "
-            "ROADMAP queue 1 item 10")
+    blocked = config.blocked_k > 0
     if fused:
         check_fused(config)
+    if blocked and config.alpha < 1.0:
+        raise ValueError("the mixed (reverse-KLD) loss has no conditional "
+                         "form; blocked_k requires alpha=1.0")
     device = torch.device(device)
     phase_s = dict.fromkeys(("equilibration", "initial", "production",
                              "training", "big_move", "evaluation",
@@ -130,22 +140,35 @@ def run(config: ExperimentConfig, resume: bool = False, fused: bool = False,
         train_set = centered_rows(obs.positions, half_box)
     logger.info("initial train set: %d samples", len(train_set))
 
-    target = DoubleWellLJ(dim=config.dim, n_particles=n_part,
-                          temperature=config.temperature, bound=half_box,
-                          V0_list=tuple(config.V0_list[:2]), r0=config.r0,
-                          k=config.k_val)
-    model = build_circular_flow(
-        n_part, config.num_dim, half_box, K=config.K,
-        hidden_units=config.hidden_units, num_bins=config.num_bins,
-        num_blocks=config.n_blocks, net_type=config.net_type, target=target,
-        generator=torch.Generator(device=device).manual_seed(
-            config.master_seed + 1), device=device)
+    init_generator = torch.Generator(device=device).manual_seed(
+        config.master_seed + 1)
+    context_fn = None
+    if blocked:
+        model, context_fn = build_blocked_flow(config, init_generator,
+                                               device)
+        logger.info("conditional flow K=blocked_K=%d; K=%d unused",
+                    config.blocked_K, config.K)
+    else:
+        target = DoubleWellLJ(dim=config.dim, n_particles=n_part,
+                              temperature=config.temperature, bound=half_box,
+                              V0_list=tuple(config.V0_list[:2]),
+                              r0=config.r0, k=config.k_val)
+        model = build_circular_flow(
+            n_part, config.num_dim, half_box, K=config.K,
+            hidden_units=config.hidden_units, num_bins=config.num_bins,
+            num_blocks=config.n_blocks, net_type=config.net_type,
+            target=target, generator=init_generator, device=device)
     train_cfg = train_config(config)
 
     def retrain(rows: np.ndarray, generator: torch.Generator) -> list:
         """One (re)training pass with a fresh Adam on centred rows."""
-        return train(model, torch.as_tensor(rows, device=device), train_cfg,
-                     generator)[3]
+        rows = torch.as_tensor(rows, device=device)
+        if blocked:
+            configs = rows.reshape(-1, n_part, 2) + half_box
+            return train_blocked(model, configs, config.blocked_k, half_box,
+                                 train_cfg, generator,
+                                 context_fn=context_fn)[2]
+        return train(model, rows, train_cfg, generator)[3]
 
     start_cycle = 0
     if restored is not None:
@@ -172,7 +195,10 @@ def run(config: ExperimentConfig, resume: bool = False, fused: bool = False,
                                   "train_set_size": len(train_set)})
 
     def evaluate(cycle_done: int) -> None:
-        """The flow's samples: heatmap and pair correlation."""
+        """The flow's samples: heatmap and pair correlation (none for the
+        conditional flow, which has no context-free sampler)."""
+        if blocked:
+            return
         with torch.no_grad():
             ev = model.sample(
                 min(config.num_samples_for_analysis, 50000),
@@ -263,11 +289,24 @@ def run(config: ExperimentConfig, resume: bool = False, fused: bool = False,
         t3 = time.perf_counter()
         phase_s["evaluation"] += t3 - t2
 
-        # 5) one big move per chain
-        res = big_move(spec, config, state, model, cycle)
-        state = res.state
+        # 5) one big move per chain, or N // k blocked moves
+        if blocked:
+            bpr = max(1, n_part // config.blocked_k)
+            g = cycle_generator(device, config.master_seed + MOVE_SEED_OFFSET,
+                                cycle)
+            accepted = torch.zeros((), device=device)
+            for _ in range(bpr):
+                res = blocked_big_moves(spec, config.beta, state, model,
+                                        half_box, config.blocked_k, g,
+                                        context_fn)
+                state = res.state
+                accepted += torch.sum(res.accepted)
+            big_move_accepts += float(accepted) / bpr
+        else:
+            res = big_move(spec, config, state, model, cycle)
+            state = res.state
+            big_move_accepts += int(torch.sum(res.accepted))
         big_move_attempts += c
-        big_move_accepts += int(torch.sum(res.accepted))
         p_acc_history.append(big_move_accepts / big_move_attempts)
         training_samples_history.append(len(train_set))
         t4 = time.perf_counter()

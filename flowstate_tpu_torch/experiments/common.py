@@ -19,6 +19,10 @@ import torch
 
 from flowstate_tpu_torch.analysis.plots import plot_potential
 from flowstate_tpu_torch.analysis.wells import classify_particles
+from flowstate_tpu_torch.flows import build_conditional_circular_flow
+from flowstate_tpu_torch.mcmc.blocked import (
+    fourier_context, fourier_context_dim,
+)
 from flowstate_tpu_torch.mcmc.cuda_metropolis import run_moves_auto
 from flowstate_tpu_torch.mcmc.initialise import init_alternating_wells
 from flowstate_tpu_torch.mcmc.metropolis import run_equilibration
@@ -75,6 +79,25 @@ def init_and_equilibrate(config: ExperimentConfig, spec: SystemSpec,
         logger.info("Equilibration done: %d steps/chain",
                     config.equilibration_steps)
     return state
+
+
+def build_blocked_flow(config: ExperimentConfig,
+                       generator: Optional[torch.Generator], device):
+    """The blocked moves' conditional flow of ``config`` (a block of
+    ``blocked_k`` particles, depth ``blocked_K``, the global flow's
+    widths) and its context, the Fourier modes up to
+    ``blocked_context_modes``: ``(model, context_fn)``."""
+    m_max = config.blocked_context_modes
+    model = build_conditional_circular_flow(
+        config.blocked_k, config.num_dim, config.half_box,
+        context_features=fourier_context_dim(m_max), K=config.blocked_K,
+        hidden_units=config.hidden_units, num_bins=config.num_bins,
+        num_blocks=config.n_blocks, generator=generator, device=device)
+
+    def context_fn(rest: torch.Tensor, positions: torch.Tensor):
+        return fourier_context(rest, positions, config.half_box, m_max)
+
+    return model, context_fn
 
 
 def plot_wells(config: ExperimentConfig, spec: SystemSpec,

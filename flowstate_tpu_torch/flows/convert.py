@@ -9,9 +9,11 @@ whose leaves are stacked ``(K, ...)``:
               "final": {...}},
       "uncond": {"widths", "heights", "derivatives"}},)
 
-The port keeps the same tree (``flows/core.py::ParamTree``), so the
-carry-over is a copy leaf by leaf with the shapes checked.  Leaves are
-numpy arrays on the JAX side.
+The conditional flow (``build_conditional_circular_flow``) has the same
+tuple, with a ``"ctx": {"w": (K, ctx, hidden), "b": (K, hidden)}`` linear
+in every block beside ``l1`` and ``l2``.  The port keeps the same tree
+(``flows/core.py::ParamTree``), so the carry-over is a copy leaf by leaf
+with the shapes checked.  Leaves are numpy arrays on the JAX side.
 """
 
 from __future__ import annotations
@@ -20,17 +22,19 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
-from flowstate_tpu_torch.flows.core import NormalizingFlow, tree_map
+from flowstate_tpu_torch.flows.core import tree_map
 
 
-def _layer_trees(flow: NormalizingFlow):
+def _layer_trees(flow: nn.Module):
     return [layer.params.tree() for layer in flow.layers]
 
 
-def params_from_jax(tree: Sequence, flow: NormalizingFlow) -> NormalizingFlow:
-    """Copy the JAX parameter tuple ``tree`` (numpy leaves) into ``flow``,
-    in the flow's dtype and on its device; returns ``flow``."""
+def params_from_jax(tree: Sequence, flow: nn.Module) -> nn.Module:
+    """Copy the JAX parameter tuple ``tree`` (numpy leaves) into ``flow``
+    (a ``NormalizingFlow`` or ``ConditionalNormalizingFlow``), in the
+    flow's dtype and on its device; returns ``flow``."""
     if isinstance(tree, dict):
         tree = (tree,)
     ours = _layer_trees(flow)
@@ -47,11 +51,29 @@ def params_from_jax(tree: Sequence, flow: NormalizingFlow) -> NormalizingFlow:
             dst.copy_(torch.as_tensor(src, dtype=dst.dtype))
 
     for dst, src in zip(ours, tree):
+        _check_structure(dst, src)
         tree_map(copy, dst, src)
     return flow
 
 
-def params_to_jax(flow: NormalizingFlow) -> tuple:
+def _check_structure(dst, src, path: str = "") -> None:
+    """The same dict keys and list lengths at every level (a conditional
+    tree's ``ctx`` leaves against an unconditional flow, and back)."""
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or set(dst) != set(src):
+            raise ValueError(f"tree at {path or '/'} does not have the "
+                             f"flow's keys {sorted(dst)}")
+        for k in dst:
+            _check_structure(dst[k], src[k], f"{path}/{k}")
+    elif isinstance(dst, (list, tuple)):
+        if not isinstance(src, (list, tuple)) or len(dst) != len(src):
+            raise ValueError(f"tree at {path or '/'} is not a list of "
+                             f"{len(dst)}")
+        for i, (d, s_) in enumerate(zip(dst, src)):
+            _check_structure(d, s_, f"{path}/{i}")
+
+
+def params_to_jax(flow: nn.Module) -> tuple:
     """The flow's parameters in the JAX layout, as numpy arrays."""
     return tuple(tree_map(lambda t: t.detach().cpu().numpy(), tree)
                  for tree in _layer_trees(flow))

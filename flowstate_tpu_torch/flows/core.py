@@ -1,10 +1,13 @@
 """The normalizing flow: a uniform torus base and a stack of couplings.
 
 Port of ``flowstate_tpu/flows/core.py``: ``NormalizingFlow`` (:33),
-``ScannedLayers`` (:249), ``build_circular_flow`` (:166) and
-``generate_samples`` (:333).  A flow built with an energy ``target``
-(``flows/targets.py``) has ``reverse_kld``, the first loss that
-differentiates the forward (sampling) direction.
+``ScannedLayers`` (:249), ``build_circular_flow`` (:166),
+``build_conditional_circular_flow`` (:203) and ``generate_samples``
+(:333).  ``ScannedLayers`` passes one context, when it is given one, to
+every layer step (the conditional flow, ``flows/models.py``).  A flow
+built with an energy ``target`` (``flows/targets.py``) has
+``reverse_kld``, the first loss that differentiates the forward
+(sampling) direction.
 
 The flow is an ``nn.Module`` that owns its parameters; ``ScannedLayers``
 keeps the K layers' parameter trees stacked on a leading K axis, as the
@@ -87,32 +90,34 @@ class ScannedLayers(nn.Module):
         pairs = torch.stack([torch.arange(K), torch.arange(K - 1, -1, -1)], 1)
         self.register_buffer("_pairs", pairs.to(device), persistent=False)
 
-    def _run(self, z: torch.Tensor, direction: str, order):
+    def _run(self, z: torch.Tensor, direction: str, order, context=None):
         stacked = self.params.tree()
         step = getattr(self.layer, direction)
         log_det = torch.zeros_like(z[:, 0])
         for k in order:
-            z, d = step(tree_map(lambda a: a[k], stacked), z)
+            z, d = step(tree_map(lambda a: a[k], stacked), z, context)
             log_det = log_det + d
         return z, log_det
 
-    def forward(self, z: torch.Tensor):
-        return self._run(z, "forward", range(self.K))
+    def forward(self, z: torch.Tensor, context=None):
+        return self._run(z, "forward", range(self.K), context)
 
-    def inverse(self, x: torch.Tensor):
-        return self._run(x, "inverse", range(self.K - 1, -1, -1))
+    def inverse(self, x: torch.Tensor, context=None):
+        return self._run(x, "inverse", range(self.K - 1, -1, -1), context)
 
-    def paired_forward_inverse(self, z_f: torch.Tensor, x_i: torch.Tensor):
+    def paired_forward_inverse(self, z_f: torch.Tensor, x_i: torch.Tensor,
+                               context=None):
         """The forward chain on ``z_f`` and the inverse chain on ``x_i`` in
         one K-step loop: step t runs layer t forward and layer K-1-t
-        inverse, their nets as one batched product."""
+        inverse, their nets as one batched product (both given
+        ``context``)."""
         # (K, 2, ...) leaves, gathered once per call
         paired = tree_map(lambda a: a[self._pairs], self.params.tree())
         ld_f = torch.zeros_like(z_f[:, 0])
         ld_i = torch.zeros_like(x_i[:, 0])
         for t in range(self.K):
             (z_f, df), (x_i, di) = self.layer.paired_forward_inverse(
-                tree_map(lambda a: a[t], paired), z_f, x_i)
+                tree_map(lambda a: a[t], paired), z_f, x_i, context)
             ld_f = ld_f + df
             ld_i = ld_i + di
         return (z_f, ld_f), (x_i, ld_i)
@@ -263,6 +268,31 @@ def build_circular_flow(num_particles: int, num_dim: int, half_box: float,
     scanned = ScannedLayers(layer, K, generator, dtype=dtype, device=device)
     return NormalizingFlow(UniformParticle(num_particles, num_dim, half_box),
                            [scanned], target)
+
+
+def build_conditional_circular_flow(block_particles: int, num_dim: int,
+                                    half_box: float, context_features: int,
+                                    K: int = 10, hidden_units: int = 256,
+                                    num_bins: int = 16, num_blocks: int = 2,
+                                    generator: Optional[torch.Generator]
+                                    = None, dtype=torch.float32,
+                                    device="cuda"):
+    """The blocked move's proposal (``mcmc/blocked.py``): a uniform torus
+    base over a block of ``block_particles`` particles and K circular
+    couplings, each conditioner gated by a ``context_features``-wide
+    context, in one ``ScannedLayers``; a ``ConditionalNormalizingFlow``
+    on ``device``."""
+    from flowstate_tpu_torch.flows.models import ConditionalNormalizingFlow
+
+    dim = block_particles * num_dim
+    layer = CircularSplineCoupling(
+        features=dim, num_blocks=num_blocks, hidden_units=hidden_units,
+        ind_circ=tuple(range(dim)), num_bins=num_bins, tail_bound=half_box,
+        context_features=context_features)
+    layer = layer.to(device)
+    scanned = ScannedLayers(layer, K, generator, dtype=dtype, device=device)
+    return ConditionalNormalizingFlow(
+        UniformParticle(block_particles, num_dim, half_box), [scanned])
 
 
 def generate_samples(model: NormalizingFlow, generator: torch.Generator,

@@ -18,7 +18,11 @@ What the JAX layer does and this one copies:
   dimension;
 * the unconditional spline on the identity half starts at identity;
 * the coupling's inverse runs the conditioner on the identity half after
-  its unconditional inverse.
+  its unconditional inverse;
+* with ``context_features`` (coupling.py:108-109, 214-218) the context
+  goes to the conditioner's net only, never to the identity half's
+  unconditional spline; the paired step gives both nets of the pair the
+  same context.
 """
 
 from __future__ import annotations
@@ -60,15 +64,17 @@ class CircularSplineCoupling(nn.Module):
     features: flow dimension (2N); num_blocks, hidden_units: the residual
     net (with LayerNorm, the JAX ``use_norm=True``); ind_circ: the circular
     coordinates; num_bins; tail_bound: half box (the torus is [-b, b]^D);
-    reverse_mask flips the alternating mask.  The layer starts at identity
-    and ties each circular dimension's end slopes (the JAX defaults
-    ``init_identity=True``, ``circular_tie=True``).
+    reverse_mask flips the alternating mask; context_features makes the
+    conditioner's net conditional (the context GLU).  The layer starts at
+    identity and ties each circular dimension's end slopes (the JAX
+    defaults ``init_identity=True``, ``circular_tie=True``).
     """
 
     def __init__(self, features: int, num_blocks: int, hidden_units: int,
                  ind_circ: Sequence[int], num_bins: int = 8,
                  tail_bound: float = 3.0, net_type: str = "residual",
-                 reverse_mask: bool = False):
+                 reverse_mask: bool = False,
+                 context_features: Optional[int] = None):
         super().__init__()
         if net_type != "residual":
             raise NotImplementedError(
@@ -101,7 +107,8 @@ class CircularSplineCoupling(nn.Module):
             out_features=len(self.transform_idx) * self.param_multiplier,
             hidden_features=hidden_units, num_blocks=num_blocks,
             preprocessing=PeriodicFeaturesElementwise(
-                len(self.identity_idx), math.pi / self.tail_bound))
+                len(self.identity_idx), math.pi / self.tail_bound),
+            context_features=context_features)
 
     # ----- params -------------------------------------------------------
 
@@ -144,8 +151,9 @@ class CircularSplineCoupling(nn.Module):
         return out, sum_except_batch(logdet)
 
     def _conditional_spline(self, p: Tree, identity_split: torch.Tensor,
-                            transform_split: torch.Tensor, inverse: bool):
-        raw = self.net.apply(p["net"], identity_split)
+                            transform_split: torch.Tensor, inverse: bool,
+                            context: Optional[torch.Tensor] = None):
+        raw = self.net.apply(p["net"], identity_split, context)
         return self._cond_spline_from_raw(raw, transform_split, inverse)
 
     def _unconditional_spline(self, p: Tree, identity_split: torch.Tensor,
@@ -160,41 +168,43 @@ class CircularSplineCoupling(nn.Module):
             tail_bound=self.tail_bound)
         return out, sum_except_batch(logdet)
 
-    def _coupling_forward(self, p: Tree, x: torch.Tensor):
+    def _coupling_forward(self, p: Tree, x: torch.Tensor, context=None):
         identity_split, transform_split = self._split(x)
         transform_out, logdet = self._conditional_spline(
-            p, identity_split, transform_split, inverse=False)
+            p, identity_split, transform_split, inverse=False,
+            context=context)
         identity_out, logdet_id = self._unconditional_spline(
             p, identity_split, inverse=False)
         out = self._scatter(identity_out, transform_out)
         return _roll(out, self.features // 2), logdet + logdet_id
 
-    def _coupling_inverse(self, p: Tree, x: torch.Tensor):
+    def _coupling_inverse(self, p: Tree, x: torch.Tensor, context=None):
         x = _roll(x, self.features // 2)
         identity_split, transform_split = self._split(x)
         identity_out, logdet = self._unconditional_spline(
             p, identity_split, inverse=True)
         transform_out, logdet_tr = self._conditional_spline(
-            p, identity_out, transform_split, inverse=True)
+            p, identity_out, transform_split, inverse=True, context=context)
         return (self._scatter(identity_out, transform_out),
                 logdet + logdet_tr)
 
     # ----- flow directions ----------------------------------------------
 
-    def forward(self, p: Tree, z: torch.Tensor):
+    def forward(self, p: Tree, z: torch.Tensor, context=None):
         """Latent -> data (sampling direction): ``(x, log_det)``."""
-        return self._coupling_inverse(p, z)
+        return self._coupling_inverse(p, z, context)
 
-    def inverse(self, p: Tree, x: torch.Tensor):
+    def inverse(self, p: Tree, x: torch.Tensor, context=None):
         """Data -> latent (log_prob direction): ``(z, log_det)``."""
-        return self._coupling_forward(p, x)
+        return self._coupling_forward(p, x, context)
 
     def paired_forward_inverse(self, p2: Tree, z_f: torch.Tensor,
-                               x_i: torch.Tensor):
+                               x_i: torch.Tensor, context=None):
         """A flow-forward step on ``z_f`` with the layer of ``p2``'s slice
         0 and a flow-inverse step on ``x_i`` with slice 1, the two nets run
-        as one batched product (``p2``'s leaves carry a leading axis of 2).
-        Returns ``((y_f, log_det_f), (y_i, log_det_i))`` as the separate
+        as one batched product (``p2``'s leaves carry a leading axis of 2;
+        a (B, ctx) ``context`` is broadcast to (2, B, ctx)).  Returns
+        ``((y_f, log_det_f), (y_i, log_det_i))`` as the separate
         ``forward`` and ``inverse`` would."""
         split = self.features // 2
         p_f = {"uncond": {k: v[0] for k, v in p2["uncond"].items()}}
@@ -203,7 +213,9 @@ class CircularSplineCoupling(nn.Module):
         idf_out, ld_id_f = self._unconditional_spline(p_f, idf, inverse=True)
         idi, tri = self._split(x_i)
         idi_out, ld_id_i = self._unconditional_spline(p_i, idi, inverse=False)
-        raw2 = self.net.apply(p2["net"], torch.stack([idf_out, idi]))
+        ctx2 = (None if context is None
+                else context.expand(2, *context.shape))
+        raw2 = self.net.apply(p2["net"], torch.stack([idf_out, idi]), ctx2)
         trf_out, ld_tr_f = self._cond_spline_from_raw(raw2[0], trf,
                                                       inverse=True)
         tri_out, ld_tr_i = self._cond_spline_from_raw(raw2[1], tri,

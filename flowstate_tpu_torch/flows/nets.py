@@ -12,8 +12,12 @@ leading batch of nets, ``w`` (G, in, out) and ``b`` (G, out), with inputs
 (G, B, in): the paired flow step runs two layers' nets in one batched
 product that way.
 
-The context GLU (``context_features``) is ROADMAP queue 1 item 10; the
-``transformer`` and ``gnn`` nets are item 14.
+With ``context_features`` the net is conditional, as the JAX net's
+(nets.py:145-146, 167-169): the context joins the featurised input of the
+``initial`` layer, and each block's residual is gated by
+``sigmoid(ctx(context))``, a linear ``blk["ctx"]`` of shape (ctx, hidden)
+(a GLU).  The context itself is not featurised.  The ``transformer`` and
+``gnn`` nets are ROADMAP queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -68,41 +72,56 @@ class PeriodicFeaturesElementwise:
 @dataclasses.dataclass(frozen=True)
 class ResidualNet:
     """Pre-activation residual MLP with LayerNorm before each activation
-    (the JAX net with ``use_norm=True``, as the couplings build it)."""
+    (the JAX net with ``use_norm=True``, as the couplings build it), with
+    the context GLU when ``context_features`` is set."""
 
     in_features: int
     out_features: int
     hidden_features: int
     num_blocks: int = 2
     preprocessing: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    context_features: Optional[int] = None
 
     def init_params(self, generator: Optional[torch.Generator] = None,
                     identity_bias: float = 0.0, dtype=torch.float32,
                     device="cuda") -> Tree:
         """The JAX init's distributions with ``init_identity``, drawn from
         ``generator``: the second linear of each block U(-1e-3, 1e-3), the
-        final layer w = 0 and b = ``identity_bias``."""
+        final layer w = 0 and b = ``identity_bias``; a block's ``ctx``
+        linear as ``nn.Linear``'s default."""
         h = self.hidden_features
+        ctx = self.context_features
         kw = dict(dtype=dtype, device=device)
-        params = {"initial": _linear_init(self.in_features, h, generator, **kw)}
+        params = {"initial": _linear_init(self.in_features + (ctx or 0), h,
+                                          generator, **kw)}
         blocks = []
         for _ in range(self.num_blocks):
             l1 = _linear_init(h, h, generator, **kw)
             l2 = {"w": _uniform((h, h), 1e-3, generator, **kw),
                   "b": _uniform((h,), 1e-3, generator, **kw)}
-            blocks.append({"l1": l1, "l2": l2})
+            block = {"l1": l1, "l2": l2}
+            if ctx:
+                block["ctx"] = _linear_init(ctx, h, generator, **kw)
+            blocks.append(block)
         params["blocks"] = blocks
         params["final"] = {
             "w": torch.zeros((h, self.out_features), **kw),
             "b": torch.full((self.out_features,), identity_bias, **kw)}
         return params
 
-    def apply(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: Tree, x: torch.Tensor,
+              context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The net on ``x``; a conditional net also takes ``context``,
+        (B, ctx), or (G, B, ctx) beside a batch of G nets."""
         if self.preprocessing is not None:
             x = self.preprocessing(x)
+        if self.context_features:
+            x = torch.cat([x, context], dim=-1)
         t = _linear(params["initial"], x)
         for blk in params["blocks"]:
             r = _linear(blk["l1"], torch.relu(_layer_norm(t)))
             r = _linear(blk["l2"], torch.relu(_layer_norm(r)))
+            if self.context_features:
+                r = r * torch.sigmoid(_linear(blk["ctx"], context))
             t = t + r
         return _linear(params["final"], t)

@@ -1,6 +1,11 @@
 """Batched Metropolis MCMC: chain state, the plain engine, the move
-kernel, and the flow's big moves."""
+kernel, the flow's big moves and the blocked conditional moves."""
 
+from flowstate_tpu_torch.mcmc.blocked import (
+    apply_blocked_moves, block_context, blocked_big_moves, context_dim,
+    fourier_context, fourier_context_dim, random_block_perm, scatter_block,
+    select_particles,
+)
 from flowstate_tpu_torch.mcmc.cuda_metropolis import (
     run_moves_auto, run_moves_kernel, run_moves_plain, run_production_kernel,
 )
@@ -46,4 +51,7 @@ __all__ = [
     "check_equilibration", "acceptance_fraction", "ensemble_acceptance",
     "BigMoveResult", "to_centered", "to_box_frame", "nf_big_moves",
     "apply_big_moves", "judge_flow", "bulk_judge_flow",
+    "random_block_perm", "select_particles", "scatter_block",
+    "block_context", "context_dim", "fourier_context", "fourier_context_dim",
+    "blocked_big_moves", "apply_blocked_moves",
 ]

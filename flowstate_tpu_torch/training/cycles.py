@@ -48,7 +48,11 @@ def train_config(config) -> TrainConfig:
 
 
 def check_fused(config) -> None:
-    """The JAX runner's conditions: a static window and alpha = 1."""
+    """The JAX runner's conditions: global big moves, a static window and
+    alpha = 1."""
+    if config.blocked_k > 0:
+        raise ValueError("blocked_k is only supported by the host-driven "
+                         "cycle loop (fused=False)")
     if config.cumulative_training_samples:
         raise ValueError("fused cycles need the non-cumulative window "
                          "(static train-set shape)")

@@ -10,7 +10,9 @@ so a run cut while writing leaves no ``step_<n>`` behind.
 The tree (``experiment_tree``) holds CPU tensors:
 
 * ``flow``: the flow's parameters leaf by leaf in the JAX pytree layout,
-  which ``flows.params_from_jax`` / ``params_to_jax`` carry both ways;
+  which ``flows.params_from_jax`` / ``params_to_jax`` carry both ways (the
+  blocked runs' conditional flow too, its blocks' ``ctx`` leaves beside
+  ``l1`` and ``l2``);
 * ``chains``: the chain state by field name, with ``seed`` and ``calls``
   (restoring ``calls`` carries the move kernel's Philox counter on, so a
   resumed chain continues its own stream);

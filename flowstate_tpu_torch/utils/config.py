@@ -79,8 +79,8 @@ class ExperimentConfig:
     testing: bool = True
     big_move_attempts: int = 1000
     big_move_interval: int = 1000
-    # blocked conditional proposals (flowstate_tpu/mcmc/blocked.py): 0 =
-    # global big moves (the reference schedule); k > 0 = resample k
+    # blocked conditional proposals (flowstate_tpu_torch/mcmc/blocked.py):
+    # 0 = global big moves (the reference schedule); k > 0 = resample k
     # particles per move from a flow conditioned on the other N-k
     blocked_k: int = 0
     blocked_context_modes: int = 3   # Fourier context m_max

@@ -11,6 +11,7 @@ writes the JAX driver's files and evidence keys.
 
 import json
 import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -188,9 +189,32 @@ def test_algorithm1_on_cpu_writes_the_jax_drivers_files(
 
 
 def test_blocked_moves_are_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        algorithm1.run(algorithm1_config(**a1_config(tmp_path, blocked_k=1)),
-                       device="cpu")
+    """The blocked path of Algorithm 1 (N=4, k=1) on the CPU; the name is
+    kept from when ``blocked_k > 0`` raised.  A finite loss, acceptance in
+    [0, 1], ``df_particle`` and the sector counts, the conditional model
+    saved in the JAX layout, no flow samples, and the depth in effect in
+    the log (R3)."""
+    res = algorithm1.run(algorithm1_config(**a1_config(
+        tmp_path, num_particles=4, blocked_k=1, blocked_K=2)), device="cpu")
+    assert np.isfinite(res["final_loss"])
+    assert 0.0 <= res["big_move_acceptance"] <= 1.0
+    assert np.isfinite(res["df_particle"])
+    d = res["directory"]
+    nf = os.path.join(d, "training_rounds", "initial_training_round")
+    assert "samples.npy" not in os.listdir(nf)
+    with open(os.path.join(nf, "initial_model_blocked_conditional.pkl"),
+              "rb") as f:
+        saved = pickle.load(f)
+    assert set(saved[0]["net"]["blocks"][0]) == {"l1", "l2", "ctx"}
+    with open(os.path.join(d, "experiment.log")) as f:
+        assert "conditional flow K=blocked_K=2; K=2 unused" in f.read()
+    with open(tmp_path / "evidence" / "smoke_a1_data.json") as f:
+        evidence = json.load(f)
+    assert sum(v for k, v in evidence["sector_counts"].items()
+               if k != "burn_frac") > 0
+    acc = np.loadtxt(os.path.join(d, "acceptance_rate_data.csv"),
+                     delimiter=",", skiprows=1)
+    assert acc.shape == (4, 2) and acc[-1, 1] == res["big_move_acceptance"]
 
 
 def test_judge_flow_and_bulk_judge_follow_the_jax_rule():

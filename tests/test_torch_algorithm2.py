@@ -228,6 +228,38 @@ def test_resume_continues_the_saved_state(tmp_path):
         assert json.load(f)["resumed_from_cycle"] == 4
 
 
+def test_blocked_run_resumes_bit_equal(tmp_path):
+    """Blocked moves (N=4, k=1) in the host loop: a run of 4 cycles
+    resumed to 6 equals an uninterrupted run of 6 (chains, conditional
+    flow, samples); the checkpoint holds the conditional flow's tree, and
+    no flow samples are evaluated."""
+    kw = dict(equilibration_steps=100, num_particles=4, blocked_k=1,
+              blocked_K=2)
+    whole = algorithm2.run(config(tmp_path / "whole", num_training_cycles=6,
+                                  **kw), device="cpu")
+    algorithm2.run(config(tmp_path / "cut", num_training_cycles=4, **kw),
+                   device="cpu")
+    resumed = algorithm2.run(config(tmp_path / "cut", num_training_cycles=6,
+                                    **kw), resume=True, device="cpu")
+    assert resumed["start_cycle"] == 4 and resumed["cycles_run"] == 2
+    assert_same_state(resumed["state"], whole["state"])
+    assert_same_flow(resumed["model"], whole["model"])
+    tail = np.load(os.path.join(whole["directory"],
+                                "production_positions.npy"))[:, -2 * 4:]
+    np.testing.assert_array_equal(
+        np.load(os.path.join(resumed["directory"],
+                             "production_positions.npy")), tail)
+    assert 0.0 <= whole["big_move_acceptance"] <= 1.0
+    assert np.all(np.isfinite(whole["loss_per_cycle"]))
+    saved, _ = restore_checkpoint(os.path.join(
+        whole["directory"], "checkpoints", "step_00000004"))
+    assert set(saved["flow"][0]["net"]["blocks"][0]) == {"l1", "l2", "ctx"}
+    names = os.listdir(whole["directory"])
+    assert not [f for f in names if f.startswith(("heatmap_", "rdf_"))]
+    with open(os.path.join(whole["directory"], "experiment.log")) as f:
+        assert "conditional flow K=blocked_K=2; K=2 unused" in f.read()
+
+
 def test_resumed_cumulative_run_keeps_its_train_set(tmp_path):
     """R7: the JAX driver restarts a resumed run's train set from zeros
     and a cumulative window then keeps those zero rows for good.  The
@@ -258,10 +290,11 @@ def test_mixed_loss_runs_in_the_host_loop(tmp_path):
 
 
 @pytest.mark.parametrize("kw,fused,error,match", [
-    (dict(blocked_k=1), False, NotImplementedError, "item 10"),
+    (dict(blocked_k=1), True, ValueError, "host-driven"),
     (dict(cumulative_training_samples=True), True, ValueError,
      "non-cumulative"),
     (dict(alpha=0.5), True, ValueError, "alpha"),
+    (dict(blocked_k=1, alpha=0.9), False, ValueError, "alpha=1.0"),
 ])
 def test_errors(tmp_path, kw, fused, error, match):
     with pytest.raises(error, match=match):
