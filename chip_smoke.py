@@ -16,7 +16,10 @@ width (K=15, hidden 256, 32 bins), runs Algorithm 1 end to end
 whose proposal energies go through K2), and runs Algorithm 2 at the
 reference's full width (100 chains, K=23, hidden 128, 15 bins): the host
 loop, a resume from its checkpoint, the fused runner frozen half way, and
-the mixed (reverse-KLD) loss.  Each phase prints one line with its name,
+the mixed (reverse-KLD) loss, runs the blocked moves, and runs the other
+samplers: K1 with a beta per chain, TEMPERING.md's parallel-tempering run
+(256 walkers x 10 replicas, 3000 rounds) through the tempering driver
+with a resume, MALA and HMC, and the NPZ trainer.  Each phase prints one line with its name,
 PASS and its numbers; any failure raises and the script exits non-zero.
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -506,24 +509,10 @@ def phase_exact_physics() -> None:
 
     from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
     from flowstate_tpu_torch.mcmc.state import init_chain_state
-    from flowstate_tpu_torch.ops import Box, SystemSpec, double_well_potential
 
-    spec = SystemSpec.create(1, Box.from_density(1, 0.01, 1.0), num_wells=2,
-                             V0_list=(-2.0, -2.5), r0=1.2, k=15.0)
+    spec, exact = exact_n1_delta_f()
     lx, ly = spec.box.size_x, spec.box.size_y
-    g = 400
-    xs = np.linspace(0, lx, g, endpoint=False) + lx / g / 2
-    ys = np.linspace(0, ly, g, endpoint=False) + ly / g / 2
-    xx, yy = np.meshgrid(xs, ys, indexing="ij")
-    pts = torch.as_tensor(np.stack([xx.ravel(), yy.ravel()], -1),
-                          dtype=torch.float32)
-    v = double_well_potential(pts, lx, ly, V0_list=list(spec.V0_list),
-                              r0=spec.r0, k=spec.k).numpy().reshape(g, g)
-    w = np.exp(-v)
     radius = 1.1 * spec.r0
-    in_a = np.hypot(xx - lx / 4, yy - ly / 2) <= radius
-    in_b = np.hypot(xx - 3 * lx / 4, yy - ly / 2) <= radius
-    exact = float(np.log(w[in_b].sum() / w[in_a].sum()))
 
     c = 256
     pos0 = np.tile(np.array([[lx / 4, ly / 2]]), (c, 1, 1))
@@ -1936,6 +1925,400 @@ def phase_blocked(card: str, chains: int = 16384, a1: dict = None,
             "launches_a2": launches2, "max_abs_err": pair_err}
 
 
+# Phase 16: the other samplers.  (a) K1 with a beta per chain at 16,384
+# chains, N=3 and N=8, two betas alternating by chain; (b) TEMPERING.md's full run
+# through the PT driver: N=3, 256 walkers x 10 replicas, T 1 to 10
+# geometric, 3000 rounds of 50 moves (38,400,000 cold-replica moves) in
+# segments of 600; (c) MALA and HMC; (d) the NPZ trainer at A1's widths
+PT_RUN = dict(num_chains=256, pt_replicas=10, pt_moves_per_round=50,
+              pt_segment_rounds=600)
+PT_STEPS = 38_400_000
+PT_EXACT_DF = 1.490          # tools/exact_free_energy.py
+PT_DF_SEMS = 3               # the cold ΔF within 3 of its SEMs of 1.490
+# the JAX driver's run of the same command (results/evidence/
+# pt_n3_r5_data.json, TPU v5e)
+PT_JAX = {"delta_f": "1.4684+-0.0338", "df_particle_mbar": "0.4028+-0.0071",
+          "df_sector_mbar": 1.5486}
+# the tracked energy against a recompute after a segment's 30,000 moves:
+# a float32 running sum of some 10^4 accepted changes of order 1 rounds by
+# about sqrt(10^4) * 4e-6 = 4e-4
+PT_DRIFT_BOUND = 1e-2
+# MALA and HMC at the reference preset (mcmc_only_config: 100 chains,
+# N=3), the production budget cut from 10^7 to 10 samples a chain
+SAMPLER_STEPS = 100 * 150 * 10
+# the gradient against central differences in float64, step 1e-5: the
+# truncation h^2 |U'''| / 6 and the rounding 1e-16 |U| / h stay below
+# 1e-6 of |g| + 1 at these configurations
+GRAD_FD_STEP, GRAD_FD_RTOL = 1e-5, 1e-6
+
+
+def pt_schedule(config, total_steps: int, start_segment: int = 0):
+    """K1 and K2 launches of a PT driver run: K1 the equilibration blocks
+    (none on resume) and one per round; K2 the initial energies (none on
+    resume) and one drift check per segment."""
+    from flowstate_tpu_torch.experiments.tempering import schedule
+
+    seg_len, segments = schedule(config, total_steps)
+    run = segments - start_segment
+    if start_segment:
+        return seg_len * run, run
+    eq_blocks, eq_rest = divmod(config.equilibration_steps,
+                                config.adjusting_frequency)
+    return eq_blocks + (1 if eq_rest else 0) + seg_len * run, 1 + run
+
+
+def exact_n1_delta_f():
+    """The N=1 double well of phase 5 and its quadrature ΔF."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.ops import Box, SystemSpec, double_well_potential
+
+    spec = SystemSpec.create(1, Box.from_density(1, 0.01, 1.0), num_wells=2,
+                             V0_list=(-2.0, -2.5), r0=1.2, k=15.0)
+    lx, ly = spec.box.size_x, spec.box.size_y
+    g = 400
+    xs = np.linspace(0, lx, g, endpoint=False) + lx / g / 2
+    ys = np.linspace(0, ly, g, endpoint=False) + ly / g / 2
+    xx, yy = np.meshgrid(xs, ys, indexing="ij")
+    pts = torch.as_tensor(np.stack([xx.ravel(), yy.ravel()], -1),
+                          dtype=torch.float32)
+    v = double_well_potential(pts, lx, ly, V0_list=list(spec.V0_list),
+                              r0=spec.r0, k=spec.k).numpy().reshape(g, g)
+    w = np.exp(-v)
+    radius = 1.1 * spec.r0
+    in_a = np.hypot(xx - lx / 4, yy - ly / 2) <= radius
+    in_b = np.hypot(xx - 3 * lx / 4, yy - ly / 2) <= radius
+    return spec, float(np.log(w[in_b].sum() / w[in_a].sum()))
+
+
+def phase_samplers(card: str, chains: int = 16384, pt: dict = None,
+                   pt_steps: int = PT_STEPS,
+                   sampler_steps: int = SAMPLER_STEPS,
+                   n1_chains: int = 4096, npz_rows: int = 20480,
+                   train_widths: dict = None) -> dict:
+    """Parallel tempering, MALA, HMC and the NPZ trainer on the card.
+
+    (a) K1 with a (C,) beta at N=3 and N=8, two betas alternating by
+    chain, against two launches at each scalar beta on the same chains
+    (positions, energies and counts bit-equal), and against its plain
+    version on injected tables; one device kernel per call with the tensor
+    and with a float.
+    (b) ``experiments.tempering.run`` at TEMPERING.md's width, straight and
+    as two segments then ``resume=True``: the final states and every
+    ``seg_*.npz`` bit-equal, K1 and K2 launches equal to the schedule, the
+    drift of the tracked energy at every segment's end, the cold ΔF within
+    3 SEM of 1.490; ms, device kernels, device ms and the idle share per
+    round.  (c) MALA and HMC: the N=1 ΔF against the quadrature, the
+    gradient against central differences in float64, ``mcmc_only`` with
+    each at the reference preset (the budget cut), launches, acceptance,
+    ms per move and per trajectory.  (d) ``train_npz`` on the PT run's
+    cold configurations at A1's widths, one epoch."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.experiments import (
+        mcmc_only, tempering, train_npz,
+    )
+    from flowstate_tpu_torch.experiments.common import build_system
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.mcmc import (
+        init_alternating_wells, init_chain_state, resync_energy, run_hmc,
+        run_hmc_equilibration, run_mala, run_mala_equilibration,
+    )
+    from flowstate_tpu_torch.mcmc.mala import potential_gradient
+    from flowstate_tpu_torch.mcmc.state import TENSOR_FIELDS
+    from flowstate_tpu_torch.mcmc.tempering import temperature_ladder
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.ops.pair_energy import total_energy_virial
+    from flowstate_tpu_torch.tools.tempering_check import profile_rounds
+    from flowstate_tpu_torch.utils.config import (
+        mcmc_only_config, tempering_config,
+    )
+
+    # (a) K1 with a beta per chain, at N=3 (4-lane groups) and N=8 (8-lane
+    # groups, PT's N=8 runs) ----------------------------------------------
+    two = torch.tensor([1.0, 0.4], device=DEVICE)
+    beta_c = two.repeat(chains // 2 + 1)[:chains].contiguous()
+    even = torch.arange(chains, device=DEVICE) % 2 == 0
+    beta_checks = {}
+    for n_a in (3, 8):
+        spec = reference_spec(n_a)
+        pos, _ = init_alternating_wells(chains, n_a, 0.03)
+        state = init_chain_state(spec, torch.as_tensor(pos, device=DEVICE),
+                                 31, 0.65)
+        mixed = cm.run_moves_kernel(spec, beta_c, state, 200)
+        cold = cm.run_moves_kernel(spec, 1.0, state, 200)
+        hot = cm.run_moves_kernel(spec, 0.4, state, 200)
+        torch.cuda.synchronize()
+        for f in ("positions", "energy", "accepts", "attempts"):
+            want = torch.where(even.reshape((-1,) + (1,) * (getattr(
+                mixed, f).ndim - 1)), getattr(cold, f), getattr(hot, f))
+            require(torch.equal(getattr(mixed, f), want),
+                    f"K1 with a beta per chain at N={n_a}: {f} differs from "
+                    "the launches at each scalar beta")
+        acc_cold = float((cold.accepts - state.accepts)[even].float()
+                         .mean()) / 200
+        acc_hot = float((hot.accepts - state.accepts)[~even].float()
+                        .mean()) / 200
+        require(acc_cold < acc_hot, f"N={n_a}: acceptance at beta 1 "
+                f"{acc_cold} not below beta 0.4's {acc_hot}")
+        err = compare_pathwise(spec, state, 128, 32,
+                               f"beta per chain, N={n_a}", beta=beta_c)
+        beta_checks[n_a] = (acc_cold, acc_hot, err)
+    err_a = max(v[2] for v in beta_checks.values())
+    # the wrapper launches K1 once a call, and every device kernel the
+    # profiler records for the calls is K1 (a fill or copy for the beta
+    # would show under its own name), no more than one a call; the
+    # profiler loses records (6 and 4 of 20 with a tensor in two runs, 20
+    # in a third; F6), so its count may fall short of the calls, but it
+    # must record some: a window with none is profiled once more
+    calls = 100
+    kernels = {}
+    for label, beta in (("tensor", beta_c), ("float", 1.0)):
+        for _ in range(2):
+            before = cm.LAUNCHES
+            events = device_kernels(
+                lambda beta=beta: cm.run_moves_kernel(spec, beta, state, 50),
+                calls)
+            require(cm.LAUNCHES - before == calls + 1,   # and one warm-up
+                    f"{calls} calls with a {label} beta: "
+                    f"{cm.LAUNCHES - before - 1} K1 launches")
+            if events:
+                break
+        names = sorted({e.name for e in events})
+        require(events and len(events) <= calls and len(names) == 1
+                and "metropolis_moves_kernel" in names[0],
+                f"{calls} calls with a {label} beta ran {len(events)} "
+                f"device kernels: {names[:6]}")
+        kernels[label] = len(events)
+
+    # (b) TEMPERING.md's run through the driver ----------------------------
+    pt = pt or PT_RUN
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out:
+        cfg_a = tempering_config(experiment_id="pt_straight",
+                                 output_dir=out, **pt)
+        expected = pt_schedule(cfg_a, pt_steps)
+        cm.LAUNCHES = cp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        ra = tempering.run(cfg_a, pt_steps, device=DEVICE)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        launches = (cm.LAUNCHES, cp.LAUNCHES)
+        require(launches == expected,
+                f"PT launched K1, K2 {launches} times, schedule {expected}")
+        seg_len = cfg_a.pt_segment_rounds
+        cfg_b = tempering_config(experiment_id="pt_resumed", output_dir=out,
+                                 **pt)
+        part_steps = 2 * seg_len * cfg_b.pt_moves_per_round * cfg_b.num_chains
+        cm.LAUNCHES = cp.LAUNCHES = 0
+        rb = tempering.run(cfg_b, part_steps, device=DEVICE)
+        part = (cm.LAUNCHES, cp.LAUNCHES)
+        cm.LAUNCHES = cp.LAUNCHES = 0
+        rc = tempering.run(cfg_b, pt_steps, resume=True, device=DEVICE)
+        torch.cuda.synchronize()
+        resumed = (cm.LAUNCHES, cp.LAUNCHES)
+        want = (pt_schedule(cfg_b, part_steps),
+                pt_schedule(cfg_b, pt_steps, start_segment=2))
+        require((part, resumed) == want,
+                f"PT in two parts launched K1, K2 {part} and {resumed} "
+                f"times, schedule {want}")
+        require(same_state(rc["state"], ra["state"]),
+                "the resumed PT run's final state differs from the "
+                "uninterrupted one's")
+        seg_a = os.path.join(ra["directory"], "segments")
+        seg_c = os.path.join(rc["directory"], "segments")
+        names = sorted(os.listdir(seg_a))
+        require(names == sorted(os.listdir(seg_c)) and len(names)
+                == ra["rounds"] // seg_len, f"segments {names}")
+        for name in names:
+            a = np.load(os.path.join(seg_a, name))
+            c = np.load(os.path.join(seg_c, name))
+            require(a.files == c.files and all(
+                np.array_equal(a[k], c[k]) for k in a.files),
+                f"{name} differs between the straight and resumed runs")
+        drift = ra["energy_drift"]
+        require(all(np.isfinite(d) and d < PT_DRIFT_BOUND for d in drift),
+                f"tracked energy drift {drift}")
+        df, sem = ra["delta_f_mean"], ra["delta_f_sem"]
+        require(sem > 0 and abs(df - PT_EXACT_DF) <= PT_DF_SEMS * sem,
+                f"PT cold ΔF {df} +- {sem} vs exact {PT_EXACT_DF}")
+        require(min(ra["edge_acceptance"]) > 0.05,
+                f"edge acceptance {ra['edge_acceptance']}")
+        cold_pos = np.load(os.path.join(seg_a, names[-1]))["cold_positions"]
+
+        # the round's cost, from a profiled window at the run's shape
+        cfg = cfg_a
+        pt_spec = build_system(cfg)
+        betas = temperature_ladder(cfg.temperature, cfg.pt_t_hot,
+                                   cfg.pt_replicas, cfg.pt_ladder, DEVICE)
+        timing = profile_rounds(
+            pt_spec, betas, ra["state"],
+            torch.Generator(device=DEVICE).manual_seed(5),
+            cfg.pt_moves_per_round, tempering.well_record(cfg))
+
+        # (d) the NPZ trainer on the run's cold configurations -----------
+        rows = cold_pos.reshape(-1, 3, 2)[-npz_rows:] - cfg.half_box
+        npz = os.path.join(out, "pt_cold.npz")
+        np.savez(npz, configs=rows)
+        widths = train_widths or dict(K=15, hidden_units=256, num_bins=32)
+        t0 = time.perf_counter()
+        tn = train_npz.main([
+            "--npz_path", npz, "--output_path", os.path.join(out, "npz"),
+            "--half_box", str(cfg.half_box), "--K", str(widths["K"]),
+            "--hidden_units", str(widths["hidden_units"]),
+            "--num_bins", str(widths["num_bins"]), "--epochs", "1",
+            "--eval_samples", "20000", "--device", DEVICE])
+        wall_npz = time.perf_counter() - t0
+        written = set(os.listdir(os.path.join(out, "npz")))
+        require(np.isfinite(tn["final_loss"]) and tn["num_samples"] > 0
+                and {"trained_model.pkl", "frequency_heatmap_data.json",
+                     "pair_correlation_function_data.json"} <= written,
+                f"train_npz: loss {tn['final_loss']}, {tn['num_samples']} "
+                f"samples, files {sorted(written)}")
+
+        # (c) MALA and HMC through mcmc_only --------------------------------
+        drivers = {}
+        for sampler in ("mala", "hmc"):
+            cfg_s = mcmc_only_config(experiment_id=f"chip_smoke_{sampler}",
+                                     sampler=sampler, output_dir=out)
+            samples = (sampler_steps // cfg_s.num_chains
+                       // cfg_s.sampling_frequency)
+            per_block = (cfg_s.sampling_frequency if sampler == "mala"
+                         else max(1, cfg_s.sampling_frequency
+                                  // cfg_s.num_leapfrog))
+            adapt = 1000 if sampler == "mala" else 500
+            eq_blocks, eq_rest = divmod(cfg_s.equilibration_steps,
+                                        cfg_s.adjusting_frequency)
+            want = (eq_blocks + (1 if eq_rest else 0),
+                    2 + adapt + samples * per_block)
+            cm.LAUNCHES = cp.LAUNCHES = 0
+            t0 = time.perf_counter()
+            res = mcmc_only.run(cfg_s, sampler_steps, device=DEVICE)
+            torch.cuda.synchronize()
+            got = (cm.LAUNCHES, cp.LAUNCHES)
+            require(got == want, f"mcmc_only --sampler {sampler} launched "
+                    f"K1, K2 {got} times, schedule {want}")
+            acc = res["production_acceptance"]
+            require(0.2 < acc < 0.95 and np.isfinite(
+                res["energy_per_particle"]),
+                f"{sampler}: acceptance {acc}, E/N "
+                f"{res['energy_per_particle']}")
+            drivers[sampler] = {"launches": got, "acceptance": acc,
+                                "e_per_particle": res["energy_per_particle"],
+                                "wall_s": time.perf_counter() - t0}
+
+    # ms per MALA move and per HMC trajectory at the preset's 100 chains
+    spec3 = reference_spec(3)
+    pos, _ = init_alternating_wells(100, 3, 0.03)
+    s100 = resync_energy(spec3, cm.run_moves_kernel(
+        spec3, 1.0, init_chain_state(spec3, torch.as_tensor(
+            pos, device=DEVICE), 3, 0.65), 2000))
+    mala_ms = cuda_ms(lambda: run_mala(spec3, 1.0, s100.replace(
+        max_disp=torch.full_like(s100.max_disp, 0.02)), 20), 3) / 20
+    hmc_ms = cuda_ms(lambda: run_hmc(spec3, 1.0, s100.replace(
+        max_disp=torch.full_like(s100.max_disp, 0.05)), 5), 3) / 5
+
+    # the N=1 ΔF against the quadrature, each sampler
+    spec1, exact = exact_n1_delta_f()
+    lx, ly = spec1.box.size_x, spec1.box.size_y
+    radius = 1.1 * spec1.r0
+    n1 = {}
+    for sampler in ("mala", "hmc"):
+        pos0 = np.tile(np.array([[lx / 4, ly / 2]]), (n1_chains, 1, 1))
+        pos0[n1_chains // 2:, :, 0] = 3 * lx / 4
+        s = init_chain_state(spec1, torch.as_tensor(pos0, device=DEVICE), 7,
+                             0.3)
+        frames = []
+        if sampler == "mala":
+            s = run_mala_equilibration(spec1, 1.0, s, 300, 50)
+            for _ in range(120):
+                s = run_mala(spec1, 1.0, s, 5)
+                frames.append(s.positions)
+        else:
+            s = run_hmc_equilibration(spec1, 1.0, s, 200, 25, 5)
+            for _ in range(120):
+                s = run_hmc(spec1, 1.0, s, 3, 5)
+                frames.append(s.positions)
+        xy = torch.stack(frames).reshape(-1, 2).cpu().numpy()
+        sa = np.hypot(*(xy - [lx / 4, ly / 2]).T) <= radius
+        sb = np.hypot(*(xy - [3 * lx / 4, ly / 2]).T) <= radius
+        n1[sampler] = float(np.log(sb.sum() / sa.sum()))
+        require(abs(n1[sampler] - exact) < 0.12,
+                f"{sampler} N=1 ΔF {n1[sampler]} vs exact {exact}")
+
+    # the gradient against central differences, float64 on the card
+    g64 = torch.Generator(device=DEVICE).manual_seed(41)
+    x = (init_chain_state(spec3, torch.as_tensor(
+        pos[:64], device=DEVICE), 3, 0.65).positions.double()
+         + 0.2 * torch.randn((64, 3, 2), generator=g64, device=DEVICE,
+                             dtype=torch.float64))
+    grad = potential_gradient(spec3, x)
+    fd = torch.zeros_like(x)
+    for i in range(3):
+        for d in range(2):
+            step = torch.zeros_like(x)
+            step[:, i, d] = GRAD_FD_STEP
+            fd[:, i, d] = ((total_energy_virial(spec3, x + step)[0]
+                            - total_energy_virial(spec3, x - step)[0])
+                           / (2 * GRAD_FD_STEP))
+    grad_err = float(((grad - fd).abs() / (grad.abs() + 1.0)).max())
+    require(grad.dtype == torch.float64 and grad_err <= GRAD_FD_RTOL,
+            f"gradient against central differences: {grad_err} relative")
+
+    rounds = ra["rounds"]
+    phase("16 samplers", card=f"'{card}'",
+          beta_per_chain="bit-equal at N=3 and N=8",
+          pathwise_err=",".join(f"{v[2]:.3g}" for v in beta_checks.values()),
+          k1_calls_profiled=calls,
+          kernels_recorded_tensor=kernels["tensor"],
+          kernels_recorded_float=kernels["float"],
+          kernel_names_recorded="metropolis_moves_kernel",
+          acceptance_beta1=",".join(f"{v[0]:.4f}"
+                                    for v in beta_checks.values()),
+          acceptance_beta04=",".join(f"{v[1]:.4f}"
+                                     for v in beta_checks.values()),
+          pt_walkers=cfg_a.num_chains, pt_replicas=cfg_a.pt_replicas,
+          pt_rounds=rounds, pt_launches=f"{launches[0]},{launches[1]}",
+          pt_parts_launches=f"{part[0]},{part[1]}+{resumed[0]},{resumed[1]}",
+          resume="bit-equal",
+          pt_delta_f=f"{df:.4f}+-{sem:.4f}",
+          pt_delta_f_jax_r5=PT_JAX["delta_f"],
+          df_particle_mbar=(f"{ra['df_particle_mbar']:.4f}+-"
+                            f"{ra['df_particle_mbar_sem']:.4f}"),
+          df_particle_mbar_jax_r5=PT_JAX["df_particle_mbar"],
+          df_particle_cold=f"{ra['df_particle_cold']:.4f}",
+          df_sector_cold=f"{ra['df_sector_cold']:.4f}",
+          df_sector_mbar=f"{ra['df_sector_mbar']:.4f}",
+          edge_acceptance=",".join(f"{a:.3f}" for a in ra["edge_acceptance"]),
+          energy_drift=",".join(f"{d:.3g}" for d in drift),
+          pt_wall_s=f"{wall_a:.2f}",
+          pt_segments_ms_per_round=(
+              f"{1e3 * sum(ra['segment_s']) / rounds:.4f}"),
+          ms_per_round=f"{timing['ms_per_round']:.4f}",
+          kernels_per_round=timing["kernels_per_round"],
+          device_ms_per_round=(None if timing["device_ms_per_round"] is None
+                               else f"{timing['device_ms_per_round']:.4f}"),
+          idle_share=(None if timing["idle_share"] is None
+                      else f"{timing['idle_share']:.3f}"),
+          n1_delta_f_mala=f"{n1['mala']:.4f}",
+          n1_delta_f_hmc=f"{n1['hmc']:.4f}", n1_exact=f"{exact:.4f}",
+          grad_fd_rel_err=f"{grad_err:.3g}",
+          budget_steps=sampler_steps,
+          **{f"{k}_{f}": (f"{v[f]:.4f}" if isinstance(v[f], float)
+                          else f"{v[f][0]},{v[f][1]}" if f == "launches"
+                          else v[f])
+             for k, v in drivers.items() for f in v},
+          mala_ms_per_move=f"{mala_ms:.3f}",
+          hmc_ms_per_trajectory=f"{hmc_ms:.3f}",
+          npz_loss=f"{tn['final_loss']:.4f}", npz_samples=tn["num_samples"],
+          npz_wall_s=f"{wall_npz:.2f}")
+    return {"launches_pt": launches,
+            "launches_mala_hmc": {k: v["launches"][1]
+                                  for k, v in drivers.items()},
+            "timing": timing, "max_abs_err": err_a}
+
+
 def main() -> int:
     import torch
 
@@ -1962,6 +2345,7 @@ def main() -> int:
     a1 = phase_algorithm1(card)
     a2 = phase_algorithm2(card)
     blocked = phase_blocked(card)
+    samplers = phase_samplers(card)
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{
@@ -1974,7 +2358,8 @@ def main() -> int:
         "launches_a2": a2["launches"],
         "launches_blocked": {"a1": blocked["launches_a1"][0],
                              "a2": blocked["launches_a2"][0]},
-        "max_abs_err": err,
+        "launches_pt": samplers["launches_pt"][0],
+        "max_abs_err": max(err, samplers["max_abs_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
@@ -1990,6 +2375,8 @@ def main() -> int:
         "launches_a2": a2["launches_k2"],
         "launches_blocked": {"a1": blocked["launches_a1"][1],
                              "a2": blocked["launches_a2"][1]},
+        "launches_pt": samplers["launches_pt"][1],
+        "launches_mala_hmc": samplers["launches_mala_hmc"],
         "max_abs_err": err_k2,
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

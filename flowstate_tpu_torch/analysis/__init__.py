@@ -1,4 +1,4 @@
-"""Host-side analysis: well statistics and effective sample size."""
+"""Analysis: well statistics, effective sample size and MBAR."""
 
 from flowstate_tpu_torch.analysis.ess import (
     autocorrelation,
@@ -17,11 +17,21 @@ from flowstate_tpu_torch.analysis.wells import (
     classify_particles,
     state_histogram_counts,
     well_centers,
+    well_counts_device,
+)
+from flowstate_tpu_torch.analysis.mbar import (
+    mbar_expectation,
+    mbar_free_energies,
+    mbar_log_weights,
+    pt_well_delta_f,
 )
 
 __all__ = [
     "classify_particles", "calculate_well_statistics",
     "state_histogram_counts", "average_free_energy", "well_centers",
+    "well_counts_device",
+    "mbar_free_energies", "mbar_log_weights", "mbar_expectation",
+    "pt_well_delta_f",
     "effective_sample_size", "integrated_autocorr_time", "autocorrelation",
     "multichain_ess", "sampling_efficiency",
     "WELL_A", "WELL_B", "OUTSIDE", "STATE_LABELS",

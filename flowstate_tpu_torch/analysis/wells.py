@@ -1,9 +1,9 @@
 """Well-occupancy observables: classification, P(A)/P(B), ΔF, state counts.
 
-Port of ``flowstate_tpu/analysis/wells.py``: numpy on the host, unchanged
-apart from leaving out ``well_counts_device`` (jnp, used only by the
-tempering experiment, which is not ported yet).  Equivalents of the
-reference's analysis utilities:
+Port of ``flowstate_tpu/analysis/wells.py``: numpy on the host, and
+``well_counts_device`` in torch on the tensors' own device (the tempering
+driver's per-round record).  Equivalents of the reference's analysis
+utilities:
 
 * ``classify_particles``          — A/B/Outside via disks of radius 1.1*r0
   around the well centers, min-image PBC
@@ -57,6 +57,27 @@ def classify_particles(positions: np.ndarray, half_box: float,
     out[inside[..., 1]] = WELL_B
     out[inside[..., 0]] = WELL_A  # left wins if (impossibly) both
     return out
+
+
+def well_counts_device(positions, half_box: float, r0: float = 1.2):
+    """Per-configuration well occupation counts ``(n_A, n_B)`` of a
+    (..., N, 2) tensor in the MC box frame, on its own device: the circles
+    of :func:`classify_particles` (radius 1.1 r0, minimum image).  Each
+    count is (...,) int64.  Meant for ``record_fn`` hooks that keep the
+    observables on the card instead of copying every replica's positions
+    (``mcmc/tempering.py``, the PT production driver)."""
+    import torch
+
+    L = 2.0 * half_box
+    radius = 1.1 * r0
+    centers = torch.as_tensor(well_centers(half_box), dtype=positions.dtype,
+                              device=positions.device)
+    d = positions[..., None, :] - centers          # (..., N, 2wells, 2)
+    d = d - L * torch.round(d / L)
+    inside = torch.sum(d * d, dim=-1) <= radius ** 2   # (..., N, 2)
+    n_a = torch.sum(inside[..., 0], dim=-1)
+    n_b = torch.sum(inside[..., 1], dim=-1)
+    return n_a, n_b
 
 
 def calculate_well_statistics(configurations: np.ndarray, start_idx: int,

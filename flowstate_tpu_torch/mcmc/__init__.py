@@ -1,5 +1,6 @@
-"""Batched Metropolis MCMC: chain state, the plain engine, the move
-kernel, the flow's big moves and the blocked conditional moves."""
+"""Batched MCMC: chain state, the plain engine, the move kernel, the flow's
+big moves, the blocked conditional moves, parallel tempering, MALA and
+HMC."""
 
 from flowstate_tpu_torch.mcmc.blocked import (
     apply_blocked_moves, block_context, blocked_big_moves, context_dim,
@@ -8,6 +9,10 @@ from flowstate_tpu_torch.mcmc.blocked import (
 )
 from flowstate_tpu_torch.mcmc.cuda_metropolis import (
     run_moves_auto, run_moves_kernel, run_moves_plain, run_production_kernel,
+)
+from flowstate_tpu_torch.mcmc.hmc import (
+    DEFAULT_NUM_LEAPFROG, HMC_TARGET_ACCEPTANCE, adjust_eps, hmc_apply,
+    run_hmc, run_hmc_equilibration,
 )
 from flowstate_tpu_torch.mcmc.hybrid import (
     BigMoveResult, apply_big_moves, bulk_judge_flow, judge_flow,
@@ -18,6 +23,10 @@ from flowstate_tpu_torch.mcmc.initialise import (
     initialise_fcc,
     initialise_low_left,
     initialise_low_right,
+)
+from flowstate_tpu_torch.mcmc.mala import (
+    MALA_TARGET_ACCEPTANCE, adjust_tau, mala_apply, potential_gradient,
+    run_mala, run_mala_equilibration,
 )
 from flowstate_tpu_torch.mcmc.metropolis import (
     Observables,
@@ -37,6 +46,11 @@ from flowstate_tpu_torch.mcmc.observables import (
 from flowstate_tpu_torch.mcmc.state import (
     ChainState, chain_state_from_numpy, init_chain_state, resync_energy,
 )
+from flowstate_tpu_torch.mcmc.tempering import (
+    ReplicaExchangeResult, SwapResult, chain_betas, init_tempered_state,
+    replica_view, run_replica_exchange, run_tempered_moves, swap_replicas,
+    temperature_ladder,
+)
 
 __all__ = [
     "ChainState", "init_chain_state", "chain_state_from_numpy",
@@ -54,4 +68,11 @@ __all__ = [
     "random_block_perm", "select_particles", "scatter_block",
     "block_context", "context_dim", "fourier_context", "fourier_context_dim",
     "blocked_big_moves", "apply_blocked_moves",
+    "temperature_ladder", "chain_betas", "replica_view",
+    "init_tempered_state", "run_tempered_moves", "SwapResult",
+    "swap_replicas", "ReplicaExchangeResult", "run_replica_exchange",
+    "potential_gradient", "mala_apply", "run_mala", "adjust_tau",
+    "run_mala_equilibration", "MALA_TARGET_ACCEPTANCE",
+    "hmc_apply", "run_hmc", "adjust_eps", "run_hmc_equilibration",
+    "HMC_TARGET_ACCEPTANCE", "DEFAULT_NUM_LEAPFROG",
 ]

@@ -11,7 +11,10 @@ virial NaN until ``resync_energy``.
 
 ``run_moves_auto`` sends a CUDA tensor to the kernel and a CPU tensor to
 the plain version; ``run_moves_kernel`` raises on anything it does not
-take.  ``LAUNCHES`` counts the kernel's launches.
+take.  ``LAUNCHES`` counts the kernel's launches.  ``beta`` is one float
+for every chain or a contiguous (C,) float32 tensor on the state's device,
+each chain's own (parallel tempering runs every replica at its own beta in
+one launch); a float passes a null table, so it adds no device work.
 
 The kernel gives each chain a group of threads (``group_threads``: 4 or 8
 lanes of a warp for N <= 16, a warp up to N = 256, a block of 128 or 256
@@ -26,7 +29,7 @@ CPU tests.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,6 +42,8 @@ from flowstate_tpu_torch.ops.potentials import well_centers
 
 MAX_PARTICLES = 1024  # as the Pallas kernel; the entry point refuses more
 LAUNCHES = 0          # kernel launches in this process
+
+Beta = Union[float, torch.Tensor]   # one beta, or (C,) float32 per chain
 
 
 class _MoveParams(ctypes.Structure):
@@ -115,7 +120,7 @@ def _library():
 
 def _entry_point():
     fn = _library().flowstate_metropolis_moves
-    fn.argtypes = [ctypes.POINTER(_MoveParams)] + [ctypes.c_void_p] * 15
+    fn.argtypes = [ctypes.POINTER(_MoveParams)] + [ctypes.c_void_p] * 16
     fn.restype = ctypes.c_int
     return fn
 
@@ -151,6 +156,8 @@ def kernel_division(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _params(spec: SystemSpec, beta: float, num_chains: int, num_moves: int,
             seed: int, calls: int, fast_math: bool) -> _MoveParams:
+    """The launch's parameters; ``beta`` is NaN when a (C,) table gives
+    each chain its own."""
     lx, ly = spec.box.size_x, spec.box.size_y
     r_cut2 = spec.cutoff * spec.cutoff
     sr6_cut = (spec.sigma ** 2 / r_cut2) ** 3
@@ -196,7 +203,15 @@ def _check_tables(spec: SystemSpec, c: int, num_moves: int, device,
         _check("margin_log", margin_log, (c, num_moves), torch.float32, device)
 
 
-def run_moves_kernel(spec: SystemSpec, beta: float, state: ChainState,
+def _check_beta(beta: Beta, c: int, device) -> Optional[torch.Tensor]:
+    """None for a float beta; a (C,) tensor checked against the state."""
+    if isinstance(beta, torch.Tensor):
+        _check("beta", beta, (c,), torch.float32, device)
+        return beta
+    return None
+
+
+def run_moves_kernel(spec: SystemSpec, beta: Beta, state: ChainState,
                      num_moves: int, tables: Optional[Tables] = None,
                      margin_log: Optional[torch.Tensor] = None,
                      fast_math: bool = False) -> ChainState:
@@ -206,7 +221,8 @@ def run_moves_kernel(spec: SystemSpec, beta: float, state: ChainState,
     counter ``(move, state.calls)``, or from ``tables`` =
     ``(p_tab, d_tab, u_tab)`` as ``metropolis.draw_tables`` makes them.
     ``margin_log`` (C, T) float32, if given, receives each move's
-    ``exp(-beta dE) - u``.  The returned virial is NaN (not tracked);
+    ``exp(-beta dE) - u``.  ``beta`` is a float or each chain's, a (C,)
+    float32 tensor.  The returned virial is NaN (not tracked);
     ``calls`` advances by one.  ``state``'s tensors are read, never written:
     the new state's are fresh.
     """
@@ -230,6 +246,7 @@ def run_moves_kernel(spec: SystemSpec, beta: float, state: ChainState,
     _check("accepts", state.accepts, (c,), torch.int32, dev)
     _check("attempts", state.attempts, (c,), torch.int32, dev)
     _check_tables(spec, c, num_moves, dev, tables, margin_log)
+    beta_tab = _check_beta(beta, c, dev)
     if pos.data_ptr() % 8:
         raise ValueError("positions must be aligned to 8 bytes")
 
@@ -241,8 +258,8 @@ def run_moves_kernel(spec: SystemSpec, beta: float, state: ChainState,
         attempts=torch.empty_like(state.attempts),
         calls=state.calls + 1,
     )
-    params = _params(spec, beta, c, num_moves, state.seed, state.calls,
-                     fast_math)
+    params = _params(spec, float("nan") if beta_tab is not None else beta, c,
+                     num_moves, state.seed, state.calls, fast_math)
     p_tab, d_tab, u_tab = tables if tables is not None else (None,) * 3
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = _entry_point()
@@ -251,7 +268,7 @@ def run_moves_kernel(spec: SystemSpec, beta: float, state: ChainState,
                 ptr(state.max_disp), ptr(state.accepts), ptr(state.attempts),
                 ptr(out.positions), ptr(out.energy), ptr(out.accepts),
                 ptr(out.attempts), ptr(out.virial), ptr(p_tab), ptr(d_tab),
-                ptr(u_tab), ptr(margin_log),
+                ptr(u_tab), ptr(margin_log), ptr(beta_tab),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"metropolis_moves launch failed: cudaError {rc}")
@@ -259,19 +276,20 @@ def run_moves_kernel(spec: SystemSpec, beta: float, state: ChainState,
     return out
 
 
-def run_moves_plain(spec: SystemSpec, beta: float, state: ChainState,
+def run_moves_plain(spec: SystemSpec, beta: Beta, state: ChainState,
                     num_moves: int, tables: Optional[Tables] = None,
                     margin_log: Optional[torch.Tensor] = None) -> ChainState:
     """The kernel's plain PyTorch version (``metropolis.run_moves``), with
     the kernel's contract: the returned virial is NaN."""
     c = state.positions.shape[0]
     _check_tables(spec, c, num_moves, state.device, tables, margin_log)
+    _check_beta(beta, c, state.device)
     out = metropolis.run_moves(spec, beta, state, num_moves, tables,
                                margin_log)
     return out.replace(virial=torch.full_like(out.virial, float("nan")))
 
 
-def run_moves_auto(spec: SystemSpec, beta: float, state: ChainState,
+def run_moves_auto(spec: SystemSpec, beta: Beta, state: ChainState,
                    num_moves: int) -> ChainState:
     """The kernel for a CUDA state, the plain version for a CPU state."""
     if state.device.type == "cuda":
@@ -281,7 +299,7 @@ def run_moves_auto(spec: SystemSpec, beta: float, state: ChainState,
     raise ValueError(f"no move engine for device {state.device}")
 
 
-def run_production_kernel(spec: SystemSpec, beta: float, state: ChainState,
+def run_production_kernel(spec: SystemSpec, beta: Beta, state: ChainState,
                           num_samples: int, sampling_frequency: int,
                           start_cycle: int = 0
                           ) -> Tuple[ChainState, Observables]:

@@ -58,13 +58,14 @@ def propose(spec: SystemSpec, state: ChainState, p: torch.Tensor,
     return new_positions, enn - eno, virn - viro
 
 
-def apply_move(spec: SystemSpec, beta: float, state: ChainState,
+def apply_move(spec: SystemSpec, beta, state: ChainState,
                p: torch.Tensor, disp_unit: torch.Tensor, u: torch.Tensor,
                margin_out: Optional[torch.Tensor] = None) -> ChainState:
     """One Metropolis update of every chain from given randoms.
 
     p: (C,) particle indices, disp_unit: (C, 2) uniforms in [0, 1),
-    u: (C,) acceptance uniforms.  If ``margin_out`` is given it receives
+    u: (C,) acceptance uniforms; ``beta`` is a float or a (C,) tensor of
+    each chain's own (it broadcasts).  If ``margin_out`` is given it receives
     ``exp(-beta dE) - u``, which is positive exactly where the move is
     accepted: the distance of each decision from a tie.
     """
@@ -110,7 +111,7 @@ def draw_tables(spec: SystemSpec, num_chains: int, num_moves: int,
     return p_tab, d_tab, u_tab
 
 
-def run_moves(spec: SystemSpec, beta: float, state: ChainState,
+def run_moves(spec: SystemSpec, beta, state: ChainState,
               num_moves: int, tables: Optional[Tables] = None,
               margin_log: Optional[torch.Tensor] = None) -> ChainState:
     """``num_moves`` sequential moves of every chain.
@@ -118,7 +119,8 @@ def run_moves(spec: SystemSpec, beta: float, state: ChainState,
     The randoms come from ``tables`` when given (each with T = num_moves
     columns) and are otherwise drawn, ``RNG_CHUNK`` moves at a time, from
     ``generator_for(state)``.  ``margin_log`` (C, T) float32, if given,
-    receives each move's ``exp(-beta dE) - u``.  Advances ``calls``.
+    receives each move's ``exp(-beta dE) - u``.  ``beta``: a float or
+    (C,) per chain.  Advances ``calls``.
     """
     c = state.positions.shape[0]
 

@@ -7,13 +7,19 @@ moves); ``--driver a2`` runs Algorithm 2's host loop at that of
 ``results/evidence/a2_blocked_n8_data.json`` (255 chains, 100 cycles).
 Both files' ``config`` block is read as data; ``blocked_K`` is set to 10,
 the depth those runs had (they predate the knob).  Prints one JSON line:
-the card's name and power limit, the port's acceptance, sector histogram
-and its peak, the particle-level ΔF and each phase's wall beside the JAX
-file's numbers, the PT oracle's ΔF (``results/evidence/blocked_depth.json``)
-and whether each number lies in the range the port is expected to read.
+the card's name and power limit, the port's acceptance, final loss (the
+last epoch's mean of Phase C in A1, the last cycle's in A2), sector
+histogram and its peak, the particle-level ΔF and each phase's wall
+beside the JAX file's numbers (its final loss where the file has one),
+the PT oracle's ΔF (``results/evidence/blocked_depth.json``) and whether
+each number lies in the range the port is expected to read.
 
     python -m flowstate_tpu_torch.tools.blocked_recipe --driver a1 \\
-        [--output_dir .blocked_recipe_out] [--evidence PATH] [--device cuda]
+        [--output_dir .blocked_recipe_out] [--evidence PATH] [--seed S] \\
+        [--device cuda]
+
+``--seed`` replaces the evidence file's ``master_seed`` (42) to repeat the
+run on other draws.
 """
 
 from __future__ import annotations
@@ -82,9 +88,13 @@ def main(argv=None) -> dict:
                         default=".blocked_recipe_out")
     parser.add_argument("--evidence", type=str, default=None,
                         help="also write the JSON line to this file")
+    parser.add_argument("--seed", type=int, default=None,
+                        help="master_seed (default: the evidence file's)")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     doc, cfg = jax_config(EVIDENCE[args.driver])
+    if args.seed is not None:
+        cfg["master_seed"] = args.seed
     config = ExperimentConfig(
         **{**cfg, "blocked_K": 10,
            "experiment_id": f"blocked_recipe_torch_{args.driver}",
@@ -107,7 +117,10 @@ def main(argv=None) -> dict:
                 **sectors(doc["sector_counts"]), "device": doc["device"]}
     if args.driver == "a1":
         port["df_particle"] = res["df_particle"]
+        port["final_loss"] = res["final_loss"]
     else:
+        port["final_loss"] = res["loss_per_cycle"][-1]
+        jax_side["final_loss"] = doc["loss_per_cycle"][-1]
         hist = res["p_acc_history"]
         port["acceptance_cycle_1"] = hist[1]
         jax_side["acceptance_cycle_1"] = doc["p_acc_history"][1]
@@ -126,6 +139,7 @@ def main(argv=None) -> dict:
     line = {"card": card() if torch.device(args.device).type == "cuda"
             else "cpu", "driver": args.driver, "chains": config.num_chains,
             "num_particles": config.num_particles,
+            "master_seed": config.master_seed,
             "blocked_K": config.blocked_K, "port": port, "jax": jax_side,
             "pt_df_particle": pt_df, "expected": EXPECTED,
             "in_range": in_range}

@@ -43,8 +43,10 @@ class ExperimentConfig:
     sampling_frequency: int = 150
     adjusting_frequency: int = 5000
     target_acceptance: float = 0.5
-    # production move kernel: "metropolis" (the only one the port has so
-    # far) or "mala" / "hmc" of the JAX package (mcmc/mala.py, mcmc/hmc.py)
+    # production move kernel: "metropolis" or the gradient samplers
+    # "mala" / "hmc" (mcmc/mala.py, mcmc/hmc.py).  HMC trajectories are
+    # budgeted in gradient evaluations: sampling_frequency/num_leapfrog
+    # trajectories per sample block
     sampler: str = "metropolis"
     num_leapfrog: int = 10
 

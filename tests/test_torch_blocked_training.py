@@ -187,6 +187,8 @@ def test_blocked_recipe_runs_end_to_end_on_the_cpu(tmp_path, monkeypatch,
     assert line["jax"]["peak"] == "4B"
     assert 0.0 <= line["port"]["acceptance"] <= 1.0
     assert np.isfinite(line["port"]["df_particle"])
+    assert np.isfinite(line["port"]["final_loss"])
+    assert line["master_seed"] == 42
     assert set(line["in_range"]) == {"acceptance", "peak", "df_particle"}
     with open(evidence) as f:
         assert json.load(f)["driver"] == driver

@@ -160,16 +160,43 @@ def test_mcmc_only_experiment_on_cpu(tmp_path):
 
 
 def test_unported_samplers_name_their_roadmap_item(tmp_path):
-    for sampler in ("mala", "hmc", "pt"):
-        cfg = mcmc_only_config(experiment_id=sampler, sampler=sampler,
-                               output_dir=str(tmp_path))
-        try:
-            mcmc_only.run(cfg, 1000, device="cpu")
-        except NotImplementedError as e:
-            assert "ROADMAP" in str(e)
-        else:
-            raise AssertionError(f"{sampler} ran")
-    assert not any(tmp_path.iterdir())   # refused before writing anything
+    """Once the samplers this ROADMAP item named (queue 1 item 11: MALA,
+    HMC, PT) were refused; now each runs through ``mcmc_only.run`` on the
+    CPU at a small size and writes the JAX driver's evidence keys."""
+    metropolis_keys = None
+    for sampler in ("metropolis", "mala", "hmc", "pt"):
+        cfg = mcmc_only_config(
+            experiment_id=sampler, sampler=sampler, num_chains=4,
+            equilibration_steps=200, adjusting_frequency=100,
+            pt_replicas=3, pt_moves_per_round=20, pt_segment_rounds=5,
+            output_dir=str(tmp_path))
+        steps = 4 * 20 * 10 if sampler == "pt" else 4 * 150 * 2
+        out = mcmc_only.run(cfg, steps, device="cpu")
+        ev = json.loads((tmp_path / "evidence" / f"{sampler}_data.json")
+                        .read_text())
+        assert ev["sampler"] == sampler and ev["device"] == "cpu"
+        if sampler == "pt":
+            assert ev["driver"] == "tempering" and out["rounds"] == 10
+            assert {"df_particle_mbar", "df_particle_mbar_sem",
+                    "df_sector_mbar", "mbar_f_k", "edge_acceptance",
+                    "ladder", "sector_counts"} <= set(ev)
+            assert len(ev["edge_acceptance"]) == 2
+            assert np.isfinite(out["df_particle_mbar"])
+            continue
+        if metropolis_keys is None:
+            metropolis_keys = set(ev)
+        assert set(ev) == metropolis_keys
+        assert ev["driver"] == "mcmc_only" and out["samples_per_chain"] == 2
+        assert 0.0 < out["production_acceptance"] < 1.0
+        assert np.isfinite(out["energy_per_particle"])
+        rows = np.genfromtxt(tmp_path / sampler / "mc_runs" / "run_001" /
+                             "sampled_data.csv", delimiter=",",
+                             skip_header=1, usecols=(1, 3))
+        assert rows.shape == (2, 2) and np.isfinite(rows).all()
+    events = [json.loads(line)["event"] for line in
+              (tmp_path / "hmc" / "metrics.jsonl").read_text().splitlines()]
+    assert events == ["equilibrated", "hmc_adapted", "production_done",
+                      "free_energy"]
 
 
 def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
@@ -189,7 +216,13 @@ def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
             "flowstate_tpu_torch.training.cycles, "
             "flowstate_tpu_torch.utils.checkpoint, "
             "flowstate_tpu_torch.experiments.algorithm2, "
-            "flowstate_tpu_torch.tools.a2_recipe; "
+            "flowstate_tpu_torch.tools.a2_recipe, "
+            "flowstate_tpu_torch.experiments.tempering, "
+            "flowstate_tpu_torch.analysis.mbar, "
+            "flowstate_tpu_torch.mcmc.tempering, "
+            "flowstate_tpu_torch.mcmc.mala, flowstate_tpu_torch.mcmc.hmc, "
+            "flowstate_tpu_torch.experiments.train_npz, "
+            "flowstate_tpu_torch.tools.tempering_check; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flowstate_tpu', 'matplotlib'}); "
             "print(bad); sys.exit(1 if bad else 0)")
