@@ -13,7 +13,9 @@ port's drivers call; each writes SVG and PNG and returns their paths:
   ``plot_state_histogram`` — utils.py:712-1038 and 144-221.
 
 Each but the first two also writes ``<base_filename>_data.json``
-(``_dump_json``) with the JAX functions' file names and keys.
+(``_dump_json``) with the JAX functions' file names and keys.  Beside
+them, the ICL style helpers (plots.py:70-123): ``ICL_COLOR_CYCLE``,
+``set_icl_color_cycle`` and ``get_icl_heatmap_cmap``.
 
 Matplotlib is imported inside the functions and runs headless (Agg), so
 importing this module needs no matplotlib.  Where matplotlib cannot be
@@ -52,6 +54,64 @@ def _pyplot():
     import matplotlib.pyplot as plt
 
     return plt
+
+
+# The ICL 12-colour palette, in the reference's order (MCMC/utils.py:42-56)
+ICL_COLOR_CYCLE = (
+    "#0000CD",  # Imperial Blue
+    "#DC143C",  # Crimson
+    "#008080",  # Teal
+    "#FF4500",  # Orange Red
+    "#FFFF00",  # Yellow
+    "#C71585",  # Medium Violet Red
+    "#006400",  # Dark Green
+    "#4B0082",  # Indigo
+    "#8B4513",  # Saddle Brown
+    "#000080",  # Navy Blue
+    "#708090",  # Slate Gray
+    "#232323",  # Dark (near-black)
+)
+
+ICL_HEATMAP_STOPS = {
+    "sequential": ["#000080", "#FFFF00"],
+    "diverging": ["#0000CD", "#FFFFFF", "#DC143C"],
+    "multistep": ["#0000CD", "#008080", "#FF4500", "#FFFF00"],
+}
+
+
+def set_icl_color_cycle(use_tex: bool = False) -> None:
+    """Install the ICL colour cycle and the publication rcParams (TeX only
+    with ``use_tex``); does nothing where matplotlib cannot be imported."""
+    if _pyplot() is None:
+        return
+    import matplotlib
+    from cycler import cycler
+
+    matplotlib.rcParams["axes.prop_cycle"] = cycler(color=ICL_COLOR_CYCLE)
+    matplotlib.rcParams.update({
+        "text.usetex": use_tex,
+        "font.family": "serif",
+        "font.serif": ["Computer Modern Roman", "DejaVu Serif",
+                       "Times New Roman", "Bitstream Vera Serif"],
+        "figure.dpi": 300,
+        "savefig.dpi": 300,
+        "savefig.format": "svg",
+    })
+
+
+def get_icl_heatmap_cmap(cmap_type: str = "sequential"):
+    """The ICL palette's heatmap colormap ``ICL_<Type>`` of
+    ``ICL_HEATMAP_STOPS``; None where matplotlib cannot be imported."""
+    if cmap_type not in ICL_HEATMAP_STOPS:
+        raise ValueError(
+            "Invalid cmap_type. Choose from 'sequential', 'diverging', or "
+            "'multistep'.")
+    if _pyplot() is None:
+        return None
+    from matplotlib.colors import LinearSegmentedColormap
+
+    return LinearSegmentedColormap.from_list(
+        f"ICL_{cmap_type.capitalize()}", ICL_HEATMAP_STOPS[cmap_type])
 
 
 def _save(fig, directory: str, base_filename: str) -> Tuple[str, str]:

@@ -54,7 +54,8 @@ from flowstate_tpu_torch.analysis.wells import (
 )
 from flowstate_tpu_torch.experiments.common import (
     _thin, build_blocked_flow, build_system, init_and_equilibrate,
-    plot_wells, sector_counts, setup_experiment, write_evidence,
+    log_blocked_depth, plot_wells, sector_counts, setup_experiment,
+    write_evidence,
 )
 from flowstate_tpu_torch.flows import build_circular_flow
 from flowstate_tpu_torch.mcmc.blocked import blocked_big_moves
@@ -225,8 +226,7 @@ def run(config: ExperimentConfig, premade_data_path: str = None,
             config, _generator(device, config.master_seed + 1), device)
         logger.info("Conditional model prepared: k=%d block of %d "
                     "particles", config.blocked_k, config.num_particles)
-        logger.info("conditional flow K=blocked_K=%d; K=%d unused",
-                    config.blocked_K, config.K)
+        log_blocked_depth(config, logger)
         box_frame = torch.as_tensor(
             (train_configs + config.half_box).astype(np.float32),
             device=device)

@@ -63,7 +63,8 @@ from flowstate_tpu_torch.analysis.rdf import calculate_pair_correlation
 from flowstate_tpu_torch.analysis.wells import calculate_well_statistics
 from flowstate_tpu_torch.experiments.common import (
     _thin, build_blocked_flow, build_system, init_and_equilibrate,
-    plot_wells, sector_counts, setup_experiment, write_evidence,
+    log_blocked_depth, plot_wells, sector_counts, setup_experiment,
+    write_evidence,
 )
 from flowstate_tpu_torch.flows import (
     DoubleWellLJ, build_circular_flow, params_from_jax,
@@ -146,8 +147,7 @@ def run(config: ExperimentConfig, resume: bool = False, fused: bool = False,
     if blocked:
         model, context_fn = build_blocked_flow(config, init_generator,
                                                device)
-        logger.info("conditional flow K=blocked_K=%d; K=%d unused",
-                    config.blocked_K, config.K)
+        log_blocked_depth(config, logger)
     else:
         target = DoubleWellLJ(dim=config.dim, n_particles=n_part,
                               temperature=config.temperature, bound=half_box,

@@ -100,6 +100,17 @@ def build_blocked_flow(config: ExperimentConfig,
     return model, context_fn
 
 
+def log_blocked_depth(config: ExperimentConfig, logger) -> None:
+    """Log the conditional flow's depth and net that take effect: the JAX
+    drivers build it at ``blocked_K`` with a residual net whatever ``K``
+    and ``net_type`` say (ROADMAP R3, R11)."""
+    logger.info("conditional flow K=blocked_K=%d; K=%d unused",
+                config.blocked_K, config.K)
+    if config.net_type != "residual":
+        logger.info("conditional flow net: residual; net_type=%s unused",
+                    config.net_type)
+
+
 def plot_wells(config: ExperimentConfig, spec: SystemSpec,
                directory: str) -> Optional[Tuple[str, str]]:
     """The potential figure; None without matplotlib."""

@@ -11,9 +11,14 @@ whose leaves are stacked ``(K, ...)``:
 
 The conditional flow (``build_conditional_circular_flow``) has the same
 tuple, with a ``"ctx": {"w": (K, ctx, hidden), "b": (K, hidden)}`` linear
-in every block beside ``l1`` and ``l2``.  The port keeps the same tree
-(``flows/core.py::ParamTree``), so the carry-over is a copy leaf by leaf
-with the shapes checked.  Leaves are numpy arrays on the JAX side.
+in every block beside ``l1`` and ``l2``.  The other conditioners' ``net``
+trees are the transformer's ``{"embed", "blocks": [{"qkv", "proj", "ff1",
+"ff2"}, ...], "final"}`` and the gnn's ``{"embed", "layers": [{"msg",
+"upd"}, ...], "final"}``.  An unstacked flow (``scan_layers=False``) has a
+tuple of K such trees without the K axis, one per ``ParamLayer``.  The
+port keeps the same trees (``flows/core.py::ParamTree``), so the
+carry-over is a copy leaf by leaf with the structure and the shapes
+checked.  Leaves are numpy arrays on the JAX side.
 """
 
 from __future__ import annotations

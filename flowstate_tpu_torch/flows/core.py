@@ -12,9 +12,13 @@ built with an energy ``target`` (``flows/targets.py``) has
 The flow is an ``nn.Module`` that owns its parameters; ``ScannedLayers``
 keeps the K layers' parameter trees stacked on a leading K axis, as the
 JAX ``lax.scan`` over stacked params does, and loops over them (inverse
-K-1 ... 0).  JAX's ``remat`` has no counterpart: training keeps plain
-autograd (the peak memory of a step is measured by ``chip_smoke.py``
-phase 12).
+K-1 ... 0).  With ``scan_layers=False`` the builders give K
+``ParamLayer``s instead, each with its own tree, as JAX's unrolled flow
+has a tuple of K trees; the same numbers, without the paired pass (the
+independence move then takes the separate passes, as JAX's
+``_supports_paired`` decides).  JAX's ``remat`` has no counterpart:
+training keeps plain autograd (the peak memory of a step is measured by
+``chip_smoke.py`` phases 12 and 17).
 
 Directions: ``forward`` is latent -> data (sampling), ``inverse`` data ->
 latent (log_prob).
@@ -71,6 +75,25 @@ class ParamTree(nn.Module):
             else:
                 out[k] = v
         return out
+
+
+class ParamLayer(nn.Module):
+    """One layer of a configuration with its own parameter tree, drawn
+    from ``generator``."""
+
+    def __init__(self, layer: CircularSplineCoupling,
+                 generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.layer = layer
+        self.params = ParamTree(layer.init_params(generator, dtype=dtype,
+                                                  device=device))
+
+    def forward(self, z: torch.Tensor, context=None):
+        return self.layer.forward(self.params.tree(), z, context)
+
+    def inverse(self, x: torch.Tensor, context=None):
+        return self.layer.inverse(self.params.tree(), x, context)
 
 
 class ScannedLayers(nn.Module):
@@ -249,25 +272,40 @@ class NormalizingFlow(nn.Module):
             return params_from_jax(pickle.load(f), self)
 
 
+def _layers(layer: CircularSplineCoupling, K: int, scan_layers: bool,
+            generator: Optional[torch.Generator], dtype, device) -> list:
+    """One ``ScannedLayers`` of K, or K ``ParamLayer``s; either way the K
+    trees are drawn from ``generator`` in turn, so the two hold the same
+    numbers."""
+    layer = layer.to(device)
+    if scan_layers:
+        return [ScannedLayers(layer, K, generator, dtype=dtype,
+                              device=device)]
+    return [ParamLayer(layer, generator, dtype=dtype, device=device)
+            for _ in range(K)]
+
+
 def build_circular_flow(num_particles: int, num_dim: int, half_box: float,
                         K: int = 15, hidden_units: int = 256,
                         num_bins: int = 32, num_blocks: int = 2,
                         net_type: str = "residual", target=None,
                         generator: Optional[torch.Generator] = None,
-                        dtype=torch.float32, device="cuda"
+                        dtype=torch.float32, device="cuda",
+                        scan_layers: bool = True,
+                        compute_dtype: Optional[str] = None
                         ) -> NormalizingFlow:
     """The hybrid experiments' flow: a uniform torus base and K circular
-    couplings in one ``ScannedLayers``, on ``device``, with an optional
-    energy ``target``."""
+    couplings with the ``net_type`` conditioner, in one ``ScannedLayers``
+    (or K ``ParamLayer``s without ``scan_layers``), on ``device``, with an
+    optional energy ``target``; ``compute_dtype`` the residual net's."""
     dim = num_particles * num_dim
     layer = CircularSplineCoupling(
         features=dim, num_blocks=num_blocks, hidden_units=hidden_units,
         ind_circ=tuple(range(dim)), num_bins=num_bins, tail_bound=half_box,
-        net_type=net_type)
-    layer = layer.to(device)
-    scanned = ScannedLayers(layer, K, generator, dtype=dtype, device=device)
+        net_type=net_type, compute_dtype=compute_dtype)
     return NormalizingFlow(UniformParticle(num_particles, num_dim, half_box),
-                           [scanned], target)
+                           _layers(layer, K, scan_layers, generator, dtype,
+                                   device), target)
 
 
 def build_conditional_circular_flow(block_particles: int, num_dim: int,
@@ -276,12 +314,12 @@ def build_conditional_circular_flow(block_particles: int, num_dim: int,
                                     num_bins: int = 16, num_blocks: int = 2,
                                     generator: Optional[torch.Generator]
                                     = None, dtype=torch.float32,
-                                    device="cuda"):
+                                    device="cuda", scan_layers: bool = True):
     """The blocked move's proposal (``mcmc/blocked.py``): a uniform torus
     base over a block of ``block_particles`` particles and K circular
     couplings, each conditioner gated by a ``context_features``-wide
-    context, in one ``ScannedLayers``; a ``ConditionalNormalizingFlow``
-    on ``device``."""
+    context, in one ``ScannedLayers`` (or K ``ParamLayer``s without
+    ``scan_layers``); a ``ConditionalNormalizingFlow`` on ``device``."""
     from flowstate_tpu_torch.flows.models import ConditionalNormalizingFlow
 
     dim = block_particles * num_dim
@@ -289,10 +327,9 @@ def build_conditional_circular_flow(block_particles: int, num_dim: int,
         features=dim, num_blocks=num_blocks, hidden_units=hidden_units,
         ind_circ=tuple(range(dim)), num_bins=num_bins, tail_bound=half_box,
         context_features=context_features)
-    layer = layer.to(device)
-    scanned = ScannedLayers(layer, K, generator, dtype=dtype, device=device)
     return ConditionalNormalizingFlow(
-        UniformParticle(block_particles, num_dim, half_box), [scanned])
+        UniformParticle(block_particles, num_dim, half_box),
+        _layers(layer, K, scan_layers, generator, dtype, device))
 
 
 def generate_samples(model: NormalizingFlow, generator: torch.Generator,

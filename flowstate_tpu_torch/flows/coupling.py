@@ -1,7 +1,9 @@
-"""Circular rational-quadratic spline coupling layer.
+"""Rational-quadratic spline coupling layers (circular and linear tails).
 
 Port of ``flowstate_tpu/flows/coupling.py::CircularSplineCoupling`` (:76)
-with ``create_alternating_binary_mask`` (:45) and ``sum_except_batch``
+and ``CoupledRationalQuadraticSpline`` (:354), with the masks
+``create_alternating_binary_mask`` (:45), ``create_mid_split_binary_mask``
+(:53) and ``create_random_binary_mask`` (:61), and ``sum_except_batch``
 (:70).  The layer is an ``nn.Module`` with no parameters of its own: it
 holds the static configuration, and its methods take a parameter tree
 ``{"net": ..., "uncond": {"widths", "heights", "derivatives"}}`` shaped
@@ -22,7 +24,14 @@ What the JAX layer does and this one copies:
 * with ``context_features`` (coupling.py:108-109, 214-218) the context
   goes to the conditioner's net only, never to the identity half's
   unconditional spline; the paired step gives both nets of the pair the
-  same context.
+  same context;
+* the conditioner is chosen by ``net_type`` (coupling.py:155-191): a
+  residual net on the periodic features (LayerNorm unless ``use_norm`` is
+  False, ``compute_dtype`` its option), a transformer on them (``num_heads``
+  heads, ``num_blocks`` layers, embedding ``hidden_units``), or a torus
+  EGNN over the identity half's coordinates scaled by pi / tail_bound; a
+  context is refused for the transformer and the gnn with JAX's
+  ``ValueError``, here when the layer is built.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ import torch
 from torch import nn
 
 from flowstate_tpu_torch.flows.nets import (
-    PeriodicFeaturesElementwise, ResidualNet, Tree,
+    ConstScaleLayer, PeriodicFeaturesElementwise, ResidualNet, TorusEGNN,
+    TransformerNet, Tree,
 )
 from flowstate_tpu_torch.ops.splines import (
     IDENTITY_DERIVATIVE_CONSTANT, unconstrained_rational_quadratic_spline,
@@ -50,6 +60,23 @@ def create_alternating_binary_mask(features: int, even: bool = True
     return mask
 
 
+def create_mid_split_binary_mask(features: int) -> np.ndarray:
+    """Ones on the first half (the larger half for an odd count)."""
+    mask = np.zeros(features, dtype=np.int8)
+    mask[:features - features // 2] = 1
+    return mask
+
+
+def create_random_binary_mask(features: int, seed: int = 0) -> np.ndarray:
+    """Ones on a random half (the larger for an odd count), drawn by
+    numpy's ``default_rng(seed)`` as the JAX mask is: the same bits."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(features, dtype=np.int8)
+    mask[rng.choice(features, size=features - features // 2,
+                    replace=False)] = 1
+    return mask
+
+
 def sum_except_batch(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x.reshape(x.shape[0], -1), dim=-1)
 
@@ -61,30 +88,47 @@ def _roll(x: torch.Tensor, split: int) -> torch.Tensor:
 class CircularSplineCoupling(nn.Module):
     """One circular RQ-spline coupling layer (configuration only).
 
-    features: flow dimension (2N); num_blocks, hidden_units: the residual
-    net (with LayerNorm, the JAX ``use_norm=True``); ind_circ: the circular
-    coordinates; num_bins; tail_bound: half box (the torus is [-b, b]^D);
-    reverse_mask flips the alternating mask; context_features makes the
-    conditioner's net conditional (the context GLU).  The layer starts at
-    identity and ties each circular dimension's end slopes (the JAX
-    defaults ``init_identity=True``, ``circular_tie=True``).
+    features: flow dimension (2N); num_blocks, hidden_units: the
+    conditioner's depth and width; ind_circ: the circular coordinates;
+    num_bins; tail_bound: half box (the torus is [-b, b]^D); net_type:
+    ``"residual"``, ``"transformer"`` or ``"gnn"``; reverse_mask flips the
+    alternating mask, and ``mask`` (0/1 per feature) replaces it;
+    context_features makes the residual conditioner conditional (the
+    context GLU); num_heads: the transformer's; use_norm: the residual
+    net's LayerNorm; init_identity: the net's output layer starts at the
+    identity spline (the unconditional spline always does); compute_dtype:
+    the residual net's.  Each circular dimension's end slopes are tied (the
+    JAX default ``circular_tie=True``).
     """
 
     def __init__(self, features: int, num_blocks: int, hidden_units: int,
                  ind_circ: Sequence[int], num_bins: int = 8,
                  tail_bound: float = 3.0, net_type: str = "residual",
                  reverse_mask: bool = False,
-                 context_features: Optional[int] = None):
+                 context_features: Optional[int] = None,
+                 num_heads: int = 4, mask: Optional[Sequence[int]] = None,
+                 use_norm: bool = True, init_identity: bool = True,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
-        if net_type != "residual":
-            raise NotImplementedError(
-                f"net_type {net_type!r} is not ported yet: ROADMAP queue 1 "
-                "item 14 (the rest of the flow zoo)")
+        if net_type not in ("residual", "transformer", "gnn"):
+            raise ValueError(f"net_type must be 'residual', 'transformer' or "
+                             f"'gnn', got {net_type!r}")
+        if context_features and net_type != "residual":
+            raise ValueError("context is only wired through the residual "
+                             "backend (as in the reference: resnet.py:48-49)")
         self.features = features
+        self.num_blocks = num_blocks
         self.hidden_units = hidden_units
         self.num_bins = num_bins
         self.tail_bound = float(tail_bound)
-        m = create_alternating_binary_mask(features, even=reverse_mask)
+        self.net_type = net_type
+        self.num_heads = num_heads
+        self.use_norm = use_norm
+        self.init_identity = init_identity
+        self.context_features = context_features
+        self.compute_dtype = compute_dtype
+        m = (np.asarray(mask, dtype=np.int8) if mask is not None
+             else create_alternating_binary_mask(features, even=reverse_mask))
         self.identity_idx = np.where(m <= 0)[0]
         self.transform_idx = np.where(m > 0)[0]
         circ = set(ind_circ)
@@ -102,13 +146,30 @@ class CircularSplineCoupling(nn.Module):
                               [self.identity_idx, self.transform_idx])))):
             self.register_buffer(name, torch.as_tensor(idx, dtype=torch.long),
                                  persistent=False)
-        self.net = ResidualNet(
-            in_features=2 * len(self.identity_idx),
-            out_features=len(self.transform_idx) * self.param_multiplier,
-            hidden_features=hidden_units, num_blocks=num_blocks,
-            preprocessing=PeriodicFeaturesElementwise(
-                len(self.identity_idx), math.pi / self.tail_bound),
-            context_features=context_features)
+        self.net = self._make_net()
+
+    def _make_net(self):
+        """The conditioner of ``net_type`` (JAX's ``_net``)."""
+        d_id = len(self.identity_idx)
+        out_features = len(self.transform_idx) * self.param_multiplier
+        scale = math.pi / self.tail_bound
+        if self.net_type == "transformer":
+            return TransformerNet(
+                in_features=2 * d_id, out_features=out_features,
+                embed_dim=self.hidden_units, num_heads=self.num_heads,
+                num_layers=self.num_blocks,
+                preprocessing=PeriodicFeaturesElementwise(d_id, scale))
+        if self.net_type == "gnn":
+            return TorusEGNN(
+                num_node=d_id, out_dim=out_features, feat_dim=1,
+                hidden_dim=self.hidden_units, num_layers=self.num_blocks,
+                preprocessing=ConstScaleLayer(scale))
+        return ResidualNet(
+            in_features=2 * d_id, out_features=out_features,
+            hidden_features=self.hidden_units, num_blocks=self.num_blocks,
+            preprocessing=PeriodicFeaturesElementwise(d_id, scale),
+            context_features=self.context_features, use_norm=self.use_norm,
+            compute_dtype=self.compute_dtype)
 
     # ----- params -------------------------------------------------------
 
@@ -117,7 +178,7 @@ class CircularSplineCoupling(nn.Module):
         d_id = len(self.identity_idx)
         net = self.net.init_params(
             generator, identity_bias=IDENTITY_DERIVATIVE_CONSTANT,
-            dtype=dtype, device=device)
+            dtype=dtype, device=device, init_identity=self.init_identity)
         kw = dict(dtype=dtype, device=device)
         uncond = {
             "widths": torch.zeros((d_id, self.num_bins), **kw),
@@ -150,10 +211,16 @@ class CircularSplineCoupling(nn.Module):
             tail_bound=self.tail_bound)
         return out, sum_except_batch(logdet)
 
+    def _apply_net(self, net_params: Tree, x: torch.Tensor,
+                   context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.context_features:
+            return self.net.apply(net_params, x, context)
+        return self.net.apply(net_params, x)
+
     def _conditional_spline(self, p: Tree, identity_split: torch.Tensor,
                             transform_split: torch.Tensor, inverse: bool,
                             context: Optional[torch.Tensor] = None):
-        raw = self.net.apply(p["net"], identity_split, context)
+        raw = self._apply_net(p["net"], identity_split, context)
         return self._cond_spline_from_raw(raw, transform_split, inverse)
 
     def _unconditional_spline(self, p: Tree, identity_split: torch.Tensor,
@@ -215,7 +282,7 @@ class CircularSplineCoupling(nn.Module):
         idi_out, ld_id_i = self._unconditional_spline(p_i, idi, inverse=False)
         ctx2 = (None if context is None
                 else context.expand(2, *context.shape))
-        raw2 = self.net.apply(p2["net"], torch.stack([idf_out, idi]), ctx2)
+        raw2 = self._apply_net(p2["net"], torch.stack([idf_out, idi]), ctx2)
         trf_out, ld_tr_f = self._cond_spline_from_raw(raw2[0], trf,
                                                       inverse=True)
         tri_out, ld_tr_i = self._cond_spline_from_raw(raw2[1], tri,
@@ -223,3 +290,21 @@ class CircularSplineCoupling(nn.Module):
         yf = self._scatter(idf_out, trf_out)
         yi = _roll(self._scatter(idi_out, tri_out), split)
         return (yf, ld_id_f + ld_tr_f), (yi, ld_tr_i + ld_id_i)
+
+
+class CoupledRationalQuadraticSpline(CircularSplineCoupling):
+    """The linear-tail NSF coupling: the same layer with linear tails on
+    every dimension (``ind_circ`` empty by default) and a residual net
+    without LayerNorm on the raw identity half (no periodic features)."""
+
+    def __init__(self, features: int, num_blocks: int, hidden_units: int,
+                 ind_circ: Sequence[int] = (), **kwargs):
+        super().__init__(features, num_blocks, hidden_units, ind_circ,
+                         **kwargs)
+
+    def _make_net(self):
+        return ResidualNet(
+            in_features=len(self.identity_idx),
+            out_features=len(self.transform_idx) * self.param_multiplier,
+            hidden_features=self.hidden_units, num_blocks=self.num_blocks,
+            use_norm=False)

@@ -6,7 +6,7 @@ context-free ``UniformParticle`` base over the block's coordinates and
 layers whose ``forward`` / ``inverse`` take ``context``
 (``flows/core.py::build_conditional_circular_flow``).  The JAX module's
 ``ContextAffineCoupling``, ``ClassCondFlow`` and ``MultiscaleFlow`` are
-ROADMAP queue 1 item 14.
+ROADMAP queue 1 item 14b.
 
 Directions as in ``NormalizingFlow``: ``forward`` is latent -> data
 (sampling), ``inverse`` data -> latent (log_prob).

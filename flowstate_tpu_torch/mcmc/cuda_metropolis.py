@@ -18,17 +18,21 @@ one launch); a float passes a null table, so it adds no device work.
 
 The kernel gives each chain a group of threads (``group_threads``: 4 or 8
 lanes of a warp for N <= 16, a warp up to N = 256, a block of 128 or 256
-threads above), keeps the chain in shared memory for the whole launch and
-reads and writes the state's own tensors: a call is its checks, five
-``torch.empty`` and one launch, and leaves its input state untouched.
-``group_threads``, ``launch_shape`` and ``particle_index`` mirror the CUDA
-source's launch arithmetic and its division-free particle index for the
-CPU tests.
+threads above), keeps the chain for the whole launch where
+``memory_path`` says (shared memory within 48 KB up to N = 5,888, opted-in
+shared memory up to the card's maximum, 227 KB or N = 28,928 on an H100,
+a device-memory scratch above) and reads and writes the state's own
+tensors: a call is its checks, five ``torch.empty`` (six on the
+device-memory path) and one launch, and leaves its input state untouched.
+``group_threads``, ``memory_path``, ``launch_shape`` and
+``particle_index`` mirror the CUDA source's launch arithmetic and its
+division-free particle index for the CPU tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -40,7 +44,6 @@ from flowstate_tpu_torch.mcmc.state import ChainState, resync_energy
 from flowstate_tpu_torch.ops.pair_energy import SystemSpec
 from flowstate_tpu_torch.ops.potentials import well_centers
 
-MAX_PARTICLES = 1024  # as the Pallas kernel; the entry point refuses more
 LAUNCHES = 0          # kernel launches in this process
 
 Beta = Union[float, torch.Tensor]   # one beta, or (C,) float32 per chain
@@ -64,19 +67,52 @@ GROUP4_MAX_N = 4
 GROUP8_MAX_N = 16
 WARP_MAX_N = 256
 BLOCK128_MAX_N = 512
-MAX_SHARED_BYTES = 48 * 1024  # dynamic shared memory without opting in
+MAX_SHARED_BYTES = 48 * 1024  # a block's shared memory without opting in
+# the most shared memory a block of an H100 may opt in to, as
+# cudaDevAttrMaxSharedMemoryPerBlockOptin reads it; the kernel reads the
+# card's own
+H100_SHARED_OPTIN_BYTES = 232448
+# where a chain's planes live, as kPath* in the CUDA source
+PATH_SHARED, PATH_SHARED_OPT_IN, PATH_DEVICE = 0, 1, 2
+PATH_NAMES = ("shared", "shared_opt_in", "device")
 
 
 def group_threads(n: int) -> int:
     """Threads that own one chain of ``n`` particles in the move kernel."""
-    if not 1 <= n <= MAX_PARTICLES:
-        raise ValueError(f"the move kernel takes 1 to {MAX_PARTICLES} "
-                         f"particles (got {n})")
+    if n < 1:
+        raise ValueError(f"the move kernel takes 1 or more particles (got {n})")
     for limit, group in ((GROUP4_MAX_N, 4), (GROUP8_MAX_N, 8),
                          (WARP_MAX_N, 32), (BLOCK128_MAX_N, 128)):
         if n <= limit:
             return group
     return 256
+
+
+def static_shared_bytes(group: int) -> int:
+    """An instance's static shared memory: a float2 and an int per warp."""
+    return max(group, 32) // 32 * 12
+
+
+def plane_stride(n: int, group: int) -> int:
+    """Floats per chain and plane: an odd multiple of the group."""
+    stride = group * (-(-n // group) | 1)
+    if 2 * stride > 2 ** 31 - 1:
+        raise ValueError(f"the move kernel indexes a chain's planes in int32:"
+                         f" {n} particles are past that")
+    return stride
+
+
+def memory_path(n: int, optin_bytes: int = H100_SHARED_OPTIN_BYTES) -> int:
+    """Where a launch at ``n`` particles keeps its chains' planes, given
+    the card's opt-in maximum: ``PATH_SHARED``, ``PATH_SHARED_OPT_IN`` or
+    ``PATH_DEVICE``."""
+    group = group_threads(n)
+    chains = max(group, 32) // group
+    nbytes = (2 * chains * plane_stride(n, group) * 4
+              + static_shared_bytes(group))
+    if nbytes <= MAX_SHARED_BYTES:
+        return PATH_SHARED
+    return PATH_SHARED_OPT_IN if nbytes <= optin_bytes else PATH_DEVICE
 
 
 class LaunchShape(NamedTuple):
@@ -86,18 +122,26 @@ class LaunchShape(NamedTuple):
     group: int             # threads per chain
     block: int             # threads per block: a warp, or the group
     chains_per_block: int
-    stride: int            # floats per chain and plane in shared memory
-    shared_bytes: int
+    stride: int            # floats per chain and plane
+    path: int              # PATH_SHARED, PATH_SHARED_OPT_IN or PATH_DEVICE
+    shared_bytes: int      # dynamic shared memory (0 on the device path)
+    scratch_floats: int    # device-memory planes (0 on a shared path)
     grid: int              # blocks
 
 
-def launch_shape(n: int, num_chains: int) -> LaunchShape:
+def launch_shape(n: int, num_chains: int,
+                 optin_bytes: int = H100_SHARED_OPTIN_BYTES) -> LaunchShape:
     group = group_threads(n)
     block = max(group, 32)
     chains = block // group
-    stride = group * (-(-n // group) | 1)    # an odd multiple of the group
-    return LaunchShape(group, block, chains, stride, 2 * chains * stride * 4,
-                       -(-num_chains // chains))
+    stride = plane_stride(n, group)
+    grid = -(-num_chains // chains)
+    path = memory_path(n, optin_bytes)
+    planes = 2 * chains * stride
+    on_device = path == PATH_DEVICE
+    return LaunchShape(group, block, chains, stride, path,
+                       0 if on_device else 4 * planes,
+                       grid * planes if on_device else 0, grid)
 
 
 def particle_index(bits, n: int):
@@ -120,17 +164,40 @@ def _library():
 
 def _entry_point():
     fn = _library().flowstate_metropolis_moves
-    fn.argtypes = [ctypes.POINTER(_MoveParams)] + [ctypes.c_void_p] * 16
+    fn.argtypes = [ctypes.POINTER(_MoveParams)] + [ctypes.c_void_p] * 17
     fn.restype = ctypes.c_int
     return fn
 
 
 def kernel_group_threads(n: int) -> int:
     """Threads per chain as the built kernel's own table gives them (0
-    outside its range); builds the kernels."""
+    for n < 1); builds the kernels."""
     fn = _library().flowstate_metropolis_group_threads
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(n)
+
+
+def kernel_memory_path(n: int) -> Tuple[int, int]:
+    """``(path, optin_bytes)``: where the built kernel keeps the planes at
+    ``n`` particles on the current card (-1 for n < 1) and the card's
+    opt-in maximum it read; builds the kernels."""
+    fn = _library().flowstate_metropolis_memory_path
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    optin = ctypes.c_int(0)
+    path = fn(n, ctypes.byref(optin))
+    return path, optin.value
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(device_index: int, n: int, num_chains: int) -> int:
+    """The device-memory planes a launch of ``num_chains`` chains of ``n``
+    particles needs on card ``device_index`` (0 on a shared path), by the
+    card's own opt-in maximum; cached, since a launch's host time is what
+    bounds the main path's small calls."""
+    with torch.cuda.device(device_index):
+        optin = kernel_memory_path(1)[1]
+    return launch_shape(n, num_chains, optin).scratch_floats
 
 
 def kernel_division(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -232,9 +299,6 @@ def run_moves_kernel(spec: SystemSpec, beta: Beta, state: ChainState,
         raise ValueError(f"run_moves_kernel takes CUDA tensors, got {pos.device}"
                          "; run_moves_auto sends CPU tensors to run_moves_plain")
     n = spec.num_particles
-    if n > MAX_PARTICLES:
-        raise ValueError(f"the move kernel supports up to {MAX_PARTICLES} "
-                         f"particles (got {n})")
     if num_moves < 0:
         raise ValueError(f"num_moves must be >= 0, got {num_moves}")
     c = pos.shape[0]
@@ -249,6 +313,9 @@ def run_moves_kernel(spec: SystemSpec, beta: Beta, state: ChainState,
     beta_tab = _check_beta(beta, c, dev)
     if pos.data_ptr() % 8:
         raise ValueError("positions must be aligned to 8 bytes")
+    scratch = _scratch_floats(dev.index, n, c)
+    planes = (torch.empty(scratch, dtype=torch.float32, device=dev)
+              if scratch else None)
 
     out = state.replace(
         positions=torch.empty_like(pos),
@@ -268,7 +335,7 @@ def run_moves_kernel(spec: SystemSpec, beta: Beta, state: ChainState,
                 ptr(state.max_disp), ptr(state.accepts), ptr(state.attempts),
                 ptr(out.positions), ptr(out.energy), ptr(out.accepts),
                 ptr(out.attempts), ptr(out.virial), ptr(p_tab), ptr(d_tab),
-                ptr(u_tab), ptr(margin_log), ptr(beta_tab),
+                ptr(u_tab), ptr(margin_log), ptr(beta_tab), ptr(planes),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"metropolis_moves launch failed: cudaError {rc}")

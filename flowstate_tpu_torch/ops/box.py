@@ -2,7 +2,9 @@
 
 Port of ``flowstate_tpu/ops/box.py``.  ``Box`` stays a NamedTuple of
 floats (static metadata, never a tensor); the functions act on tensors of
-any leading shape ending in a (x, y) axis.
+any leading shape ending in a (x, y) axis.  Distances take
+``squared_norm``'s rounding, as the JAX package's ``jnp.sum(d * d, -1)``
+has it.
 """
 
 from __future__ import annotations
@@ -58,3 +60,44 @@ def min_image(delta: torch.Tensor, box: Box) -> torch.Tensor:
     """
     sizes = box.sizes(delta)
     return delta - sizes * torch.round(delta / sizes)
+
+
+def min_image_centered(delta: torch.Tensor, half_box: float) -> torch.Tensor:
+    """Minimum image in the flow's centred frame [-half_box, half_box]^d:
+    ``delta - 2 b round(delta / 2 b)``."""
+    period = 2.0 * half_box
+    return delta - period * torch.round(delta / period)
+
+
+def distance(p1: torch.Tensor, p2: torch.Tensor, box: Box) -> torch.Tensor:
+    """Minimum-image distance between two (..., 2) position tensors."""
+    return torch.sqrt(squared_norm(min_image(p1 - p2, box)))
+
+
+def distances_to_all(p: torch.Tensor, others: torch.Tensor,
+                     box: Box) -> torch.Tensor:
+    """Distances from one position (2,) to each of (M, 2)."""
+    return torch.sqrt(squared_norm(min_image(p[None, :] - others, box)))
+
+
+def pair_distance_matrix(positions: torch.Tensor, box: Box) -> torch.Tensor:
+    """The (N, N) minimum-image distance matrix of a (N, 2) configuration,
+    0 on the diagonal, whose sqrt is guarded so that autograd gives the
+    diagonal a zero gradient."""
+    sq = squared_norm(min_image(positions[:, None, :] - positions[None, :, :],
+                                box))
+    eye = torch.eye(positions.shape[0], dtype=torch.bool,
+                    device=positions.device)
+    safe = torch.where(eye, torch.ones_like(sq), sq)
+    return torch.where(eye, torch.zeros_like(sq), torch.sqrt(safe))
+
+
+def upper_triangle_distances(positions: torch.Tensor,
+                             box: Box) -> torch.Tensor:
+    """The N (N - 1) / 2 pair distances of a (N, 2) configuration, i < j
+    in row order."""
+    iu, ju = np.triu_indices(positions.shape[0], k=1)
+    iu = torch.as_tensor(iu, device=positions.device)
+    ju = torch.as_tensor(ju, device=positions.device)
+    return torch.sqrt(squared_norm(min_image(positions[iu] - positions[ju],
+                                             box)))

@@ -59,6 +59,9 @@ ISSUE_RATE_DEPTH = 8
 # the calibration: (8, 128) tiles per SM, and timed calls per width
 TILES_PER_SM, CALIBRATION_REPS = 4, 2
 LAUNCHES = 0                         # issue-rate kernel launches
+# the JAX tool's range of N (its Pallas kernel's cap, tools/n_scaling.py:
+# 144); the port's K1 takes every N, the single run times it beyond
+MAX_N = 1024
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple:
@@ -333,10 +336,9 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch finds no CUDA device; "
                            "pass --device cpu to run on the CPU")
-    too_big = [n for n in args.ns if not 2 <= n <= cm.MAX_PARTICLES]
-    if too_big:
-        raise ValueError(f"--ns must lie in [2, {cm.MAX_PARTICLES}], got "
-                         f"{too_big}")
+    outside = [n for n in args.ns if not 2 <= n <= MAX_N]
+    if outside:
+        raise ValueError(f"--ns must lie in [2, {MAX_N}], got {outside}")
     on_card = device.type == "cuda"
 
     fp32_ops_per_s = None

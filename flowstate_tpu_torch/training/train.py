@@ -1,8 +1,8 @@
 """Flow training: the mixed loss, Adam with coupled weight decay, NaN-skip.
 
 Port of ``flowstate_tpu/training/train.py``: ``TrainConfig`` (:104),
-``make_optimizer`` (:117), ``make_train_step`` (:131) and ``train``
-(:168).  The loss is ``alpha * forward_kld + (1 - alpha) * reverse_kld``
+``make_optimizer`` (:117), ``TrainState`` (:57), ``make_train_step``
+(:131) and ``train`` (:168).  The loss is ``alpha * forward_kld + (1 - alpha) * reverse_kld``
 (:73-79), each term only where its weight is not zero; the reverse term
 draws ``reverse_num_samples`` base points per step from the generator
 ``train`` is given, the same one that shuffles the epochs.
@@ -20,7 +20,9 @@ on the device, so a step needs no host sync.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (
+    Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple,
+)
 
 import torch
 
@@ -37,6 +39,19 @@ class TrainConfig:
     weight_decay: float = 0.0
     alpha: float = 1.0           # fKLD weight; (1-alpha) on reverse KLD
     reverse_num_samples: int = 256
+
+
+class TrainState(NamedTuple):
+    """What a training loop carries, under JAX's field names: the
+    parameters, the optimizer's state and ``key``, the ``torch.Generator``
+    that takes the place of a JAX key.  The port's step keeps the
+    parameters in the flow and the generator with ``train``, so it takes
+    and returns only the optimizer's state; this holds the three for code
+    written against JAX's."""
+
+    params: Any
+    opt_state: Any
+    key: Optional[torch.Generator]
 
 
 @dataclasses.dataclass

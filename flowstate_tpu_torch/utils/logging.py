@@ -1,6 +1,7 @@
 """Experiment logging: per-run file + stream handlers and structured metrics.
 
-Port of ``flowstate_tpu/utils/logging.py``, unchanged apart from turning
+Port of ``flowstate_tpu/utils/logging.py`` (``setup_logger``,
+``MetricsWriter``, ``save_params_json``), unchanged apart from turning
 torch tensors into JSON values.
 
 TPU-native equivalent of the reference ``setup_logger``
@@ -39,6 +40,18 @@ def setup_logger(logger_name: str, log_file: str,
     logger.addHandler(fh)
     logger.addHandler(ch)
     return logger
+
+
+def save_params_json(params: Dict[str, Any], directory: str,
+                     filename: str = "params.json") -> str:
+    """Write ``params`` as indented JSON into ``directory`` (made if
+    missing), numpy values and tensors as numbers and lists; returns the
+    path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, filename)
+    with open(path, "w") as f:
+        json.dump(params, f, indent=4, default=_json_default)
+    return path
 
 
 class MetricsWriter:

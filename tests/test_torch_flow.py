@@ -273,6 +273,21 @@ def test_params_round_trip_and_save_load(tmp_path):
             device="cpu"))
 
 
-def test_other_nets_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        CircularSplineCoupling(6, 2, 16, tuple(range(6)), net_type="gnn")
+@pytest.mark.parametrize("net_type", ["transformer", "gnn"])
+def test_other_nets_are_not_ported_yet(net_type):
+    """The name is kept from when only the residual net was ported.  Now:
+    a context reaches the residual net only.  JAX raises ValueError when
+    a transformer or gnn coupling with a context builds its net; the port
+    raises the same error when the layer is built.  An unknown net is
+    refused too."""
+    kw = dict(features=6, num_blocks=2, hidden_units=16,
+              ind_circ=tuple(range(6)), net_type=net_type,
+              context_features=4)
+    with pytest.raises(ValueError, match="residual backend"):
+        JCoupling(**kw).init_params(jax.random.key(0))
+    with pytest.raises(ValueError, match="residual backend"):
+        CircularSplineCoupling(**kw)
+    with pytest.raises(ValueError, match="net_type"):
+        CircularSplineCoupling(6, 2, 16, tuple(range(6)), net_type="mlp")
+    layer = CircularSplineCoupling(**{**kw, "context_features": None})
+    assert layer.net_type == net_type
