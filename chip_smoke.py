@@ -23,7 +23,10 @@ samplers: K1 with a beta per chain, TEMPERING.md's parallel-tempering run
 (256 walkers x 10 replicas, 3000 rounds) through the tempering driver
 with a resume, MALA and HMC, and the NPZ trainer, and runs the
 transformer and the gnn conditioner nets at N=8 at full width, with
-Algorithm 1 through each, and the residual flow in bf16 and unstacked.
+Algorithm 1 through each, and the residual flow in bf16 and unstacked,
+and runs the multi-device layer: K1 in shards at their chain offsets
+against one launch, the eight-step dry run over NCCL at world size 1, and
+the data-parallel step against the single one.
 Each phase prints one line with its name,
 PASS and its numbers; any failure raises and the script exits non-zero.
 The line before the last is a JSON record of the kernels; the last line
@@ -2670,6 +2673,214 @@ def phase_nets(card: str, chains: int = 16384, batch: int = 512,
     return out
 
 
+# Phase 18: the multi-device layer (parallel/, the replica-sharded swap,
+# entry.py).  K1's shards against the whole launch at (N, chains, moves,
+# a beta per chain): the reference preset's N=3 at the timing width, N=1024
+# at the single run's 128 chains, N=8 at PT's 2,560 chains
+MULTI_K1 = ((3, 16384, 1000, False), (1024, 128, 200, False),
+            (8, 2560, 200, True))
+MULTI_SWAP = (10, 256)      # replicas x walkers, TEMPERING.md's width
+
+
+def k1_in_shards(spec, beta, state, moves: int, parts: int) -> dict:
+    """K1 launched once per rank's shard of ``state`` (``shard_chain_state``
+    at ranks 0..parts-1 of a mesh of ``parts``, each at its chain offset),
+    the shards' outputs joined in rank order."""
+    import torch
+
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.parallel import ChainMesh, shard_chain_state
+
+    outs = []
+    for rank in range(parts):
+        mesh = ChainMesh(rank, parts, state.device)
+        shard = shard_chain_state(state, mesh)
+        b = beta
+        if isinstance(beta, torch.Tensor):
+            rows = shard.chain_offset - state.chain_offset
+            b = beta[rows:rows + shard.positions.shape[0]].contiguous()
+        outs.append(cm.run_moves_kernel(spec, b, shard, moves))
+    return {f: torch.cat([getattr(o, f) for o in outs])
+            for f in ("positions", "energy", "accepts", "attempts")}
+
+
+def phase_multi_device(card: str, k1_shapes=MULTI_K1, swap=MULTI_SWAP,
+                       reps: int = 10) -> dict:
+    """The multi-device layer on the one card.
+
+    (a) K1 over halves and quarters of the chains, each launch at its
+    shard's ``chain_offset``, against one launch over all of them:
+    positions, energy, accepts and attempts bit-equal, at each of
+    ``MULTI_K1``; and halves of the N=3 batch whose ``chain_offset + c``
+    crosses 2^31 (the key's add is unsigned 32-bit).  (b)
+    ``entry.dryrun_multichip(1)``: the eight steps at world size 1 over
+    NCCL on cuda:0, each rank's K1 and K2 launches, and the ring's path.
+    (c) At A1's widths (``entry.entry``: K=15, hidden 256, 32 bins, batch
+    512, weights perturbed), one data-parallel step at world size 1
+    against ``make_train_step``: loss and parameters bit-equal (and two
+    single steps against each other, printed).  (d)
+    CUDA-event times: the DP step and the single step, the NCCL
+    all-reduce of the step's flat gradient buffer, the replica-sharded
+    swap at 10 x 256 against ``swap_replicas`` (and bit-equal to it on
+    the same uniforms).  The times are readings, not claims."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from flowstate_tpu_torch import entry as entry_mod
+    from flowstate_tpu_torch.flows import params_from_jax
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.mcmc import (
+        init_alternating_wells, init_chain_state, init_tempered_state,
+        swap_replicas, swap_replicas_replica_sharded, temperature_ladder,
+    )
+    from flowstate_tpu_torch.ops import SystemSpec
+    from flowstate_tpu_torch.parallel import (
+        initialize_distributed, make_data_parallel_train_step,
+    )
+    from flowstate_tpu_torch.parallel.launch import free_tcp_address
+    from flowstate_tpu_torch.training import (
+        TrainConfig, make_optimizer, make_train_step,
+    )
+
+    # (a) K1's shards against the whole launch ------------------------------
+    checked = []
+    for n, chains, moves, per_chain in k1_shapes:
+        if n <= 12:     # the wells' start of the experiments
+            spec = reference_spec(n)
+            pos, _ = init_alternating_wells(chains, n, 0.03)
+            pos = torch.as_tensor(pos, device=DEVICE)
+        else:           # phase 3's lattice at the single run's density
+            pos, box = jittered_lattices(n, chains, n + chains)
+            spec = SystemSpec.create(n, box, num_wells=0,
+                                     V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
+        state = init_chain_state(spec, pos, 41, 0.65)
+        beta = 1.0
+        if per_chain:
+            beta = temperature_ladder(1.0, 10.0, 10, device=DEVICE)
+            beta = beta.repeat_interleave(chains // 10).contiguous()
+        out = cm.run_moves_kernel(spec, beta, state, moves)
+        whole = {f: getattr(out, f)
+                 for f in ("positions", "energy", "accepts", "attempts")}
+        for parts in (2, 4):
+            got = k1_in_shards(spec, beta, state, moves, parts)
+            for f, v in whole.items():
+                require(torch.equal(got[f], v),
+                        f"K1 in {parts} shards at N={n}, {chains} chains: "
+                        f"{f} differs from the whole launch")
+        checked.append(f"N={n}:{chains}x{moves}"
+                       + (":beta_per_chain" if per_chain else ""))
+        if len(checked) == 1:
+            first = (spec, state, out, chains, moves)
+    # across 2^31, at the first shape: the whole batch at offset 2^31 -
+    # C/2, its halves at 2^31 - C/2 and 2^31; and the offset moves the
+    # streams
+    spec, state, at_zero, chains, moves = first
+    high = state.replace(chain_offset=2 ** 31 - chains // 2,
+                         total_chains=2 ** 31 + chains // 2)
+    whole_high = cm.run_moves_kernel(spec, 1.0, high, moves)
+    halves = k1_in_shards(spec, 1.0, high, moves, 2)
+    for f in halves:
+        require(torch.equal(halves[f], getattr(whole_high, f)),
+                f"K1 halves across 2^31: {f} differs from the whole launch")
+    require(not torch.equal(whole_high.positions, at_zero.positions),
+            "K1 at chain offset 2^31 - C/2 moved as at offset 0")
+    checked.append(f"N={spec.num_particles}:halves_across_2^31")
+    torch.cuda.synchronize()
+
+    # (b) the dry run at world size 1 over NCCL ------------------------------
+    t0 = time.perf_counter()
+    dry, = entry_mod.dryrun_multichip(1, DEVICE, timeout=600)
+    dry_s = time.perf_counter() - t0
+    require(dry["backend"] == "nccl" and dry["k1_launches"] > 0
+            and dry["k2_launches"] > 0,
+            f"the dry run's summary {dry}")
+
+    # (c), (d) in this process, world size 1 over NCCL -----------------------
+    mesh = initialize_distributed(free_tcp_address(), 1, 0, DEVICE)
+    try:
+        fn, (model, batch) = entry_mod.entry(DEVICE)
+        params_from_jax(perturbed_tree(model, 18), model)
+        config = TrainConfig(batch_size=batch.shape[0], lr=1e-4)
+        opt = make_optimizer(config)
+        models = [copy.deepcopy(model) for _ in range(3)]
+        steps = [make_train_step(models[0], config, opt),
+                 make_train_step(models[1], config, opt),
+                 make_data_parallel_train_step(models[2], config, opt, mesh)]
+        losses = [step(opt.init(list(m.parameters())), batch)[1]
+                  for step, m in zip(steps, models)]
+        torch.cuda.synchronize()
+
+        @torch.no_grad()
+        def diff(a, b):
+            return max([float((a[1] - b[1]).abs())]
+                       + [float((p - q).abs().max()) for p, q in
+                          zip(a[0].parameters(), b[0].parameters())])
+
+        runs = list(zip(models, losses))
+        repeat_diff, dp_diff = diff(runs[0], runs[1]), diff(runs[0], runs[2])
+        require(torch.isfinite(losses[2]) and dp_diff == 0.0,
+                f"the DP step at world size 1 parts from the single step by "
+                f"{dp_diff} (two single steps by {repeat_diff})")
+
+        # in turns (single, DP, DP, single): the host sets both steps'
+        # times and its speed drifts
+        state0 = opt.init(list(models[2].parameters()))
+        turns = [cuda_ms(lambda i=i: steps[i](state0, batch), reps)
+                 for i in (0, 2, 2, 0)]
+        single_ms, dp_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        # the step's buffer: every gradient and the loss
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in models[2].parameters()] + [losses[2][None]])
+        allreduce_us = 1e3 * cuda_ms(lambda: dist.all_reduce(flat), 100)
+
+        r, w = swap
+        spec = reference_spec(3)
+        pos, _ = init_alternating_wells(w, 3, 0.03)
+        pt = init_tempered_state(spec, torch.as_tensor(
+            pos, device=DEVICE)[None].repeat(r, 1, 1, 1), 43, 0.65)
+        pt = pt.replace(energy=pt.energy + torch.randn(
+            r * w, generator=torch.Generator(device=DEVICE).manual_seed(44),
+            device=DEVICE))
+        betas = temperature_ladder(1.0, 10.0, r, device=DEVICE)
+        u = torch.rand((r, w), generator=torch.Generator(
+            device=DEVICE).manual_seed(45), device=DEVICE)
+        for parity in (0, 1):
+            a = swap_replicas(betas, pt, None, parity, u=u)
+            b = swap_replicas_replica_sharded(betas, pt, None, parity, mesh,
+                                              u=u)
+            require(torch.equal(a.accepted, b.accepted)
+                    and all(torch.equal(getattr(a.state, f),
+                                        getattr(b.state, f))
+                            for f in ("positions", "energy")),
+                    f"replica-sharded swap at world size 1, parity {parity}")
+        g = torch.Generator(device=DEVICE).manual_seed(46)
+        swap_ms = cuda_ms(lambda: swap_replicas_replica_sharded(
+            betas, pt, g, 0, mesh), 50)
+        plain_swap_ms = cuda_ms(lambda: swap_replicas(betas, pt, g, 0), 50)
+        ring = mesh.ring_path
+    finally:
+        dist.destroy_process_group()
+
+    phase("18 multi-device", card=f"'{card}'",
+          k1_shards_bit_equal=",".join(checked),
+          dryrun_backend=dry["backend"], dryrun_ring=dry["ring_path"],
+          dryrun_k1_launches=dry["k1_launches"],
+          dryrun_k2_launches=dry["k2_launches"],
+          dryrun_accepts=dry["accepts"], dryrun_swaps=dry["swaps"],
+          dryrun_s=f"{dry_s:.1f}",
+          dp_loss=f"{float(losses[2]):.6g}", dp_vs_single=dp_diff,
+          single_vs_single=repeat_diff,
+          dp_step_ms=f"{dp_ms:.3f}", single_step_ms=f"{single_ms:.3f}",
+          step_turns_ms=",".join(f"{t:.3f}" for t in turns),
+          allreduce_us=f"{allreduce_us:.2f}",
+          allreduce_bytes=flat.numel() * flat.element_size(),
+          swap_ring=ring, swap_shape=f"{r}x{w}",
+          sharded_swap_ms=f"{swap_ms:.4f}", swap_ms=f"{plain_swap_ms:.4f}")
+    return {"launches": (dry["k1_launches"], dry["k2_launches"])}
+
+
 def layer_slices(stacked: dict, k: int) -> list:
     """The K per-layer trees of a stacked tree (leaves (K, ...)), as an
     unstacked flow holds them."""
@@ -2712,6 +2923,7 @@ def main() -> int:
     blocked = phase_blocked(card)
     samplers = phase_samplers(card)
     nets = phase_nets(card)
+    multi = phase_multi_device(card)
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{
@@ -2726,6 +2938,7 @@ def main() -> int:
                              "a2": blocked["launches_a2"][0]},
         "launches_pt": samplers["launches_pt"][0],
         "launches_nets": {k: nets[k]["a1"]["launches"][0] for k in NETS},
+        "launches_multi": multi["launches"][0],
         "max_abs_err": max(err, samplers["max_abs_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -2745,6 +2958,7 @@ def main() -> int:
         "launches_pt": samplers["launches_pt"][1],
         "launches_mala_hmc": samplers["launches_mala_hmc"],
         "launches_nets": {k: nets[k]["a1"]["launches"][1] for k in NETS},
+        "launches_multi": multi["launches"][1],
         "max_abs_err": err_k2,
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

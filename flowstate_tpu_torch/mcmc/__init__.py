@@ -49,7 +49,7 @@ from flowstate_tpu_torch.mcmc.state import (
 from flowstate_tpu_torch.mcmc.tempering import (
     ReplicaExchangeResult, SwapResult, chain_betas, init_tempered_state,
     replica_view, run_replica_exchange, run_tempered_moves, swap_replicas,
-    temperature_ladder,
+    swap_replicas_replica_sharded, temperature_ladder,
 )
 
 __all__ = [
@@ -70,7 +70,8 @@ __all__ = [
     "blocked_big_moves", "apply_blocked_moves",
     "temperature_ladder", "chain_betas", "replica_view",
     "init_tempered_state", "run_tempered_moves", "SwapResult",
-    "swap_replicas", "ReplicaExchangeResult", "run_replica_exchange",
+    "swap_replicas", "swap_replicas_replica_sharded",
+    "ReplicaExchangeResult", "run_replica_exchange",
     "potential_gradient", "mala_apply", "run_mala", "adjust_tau",
     "run_mala_equilibration", "MALA_TARGET_ACCEPTANCE",
     "hmc_apply", "run_hmc", "adjust_eps", "run_hmc_equilibration",

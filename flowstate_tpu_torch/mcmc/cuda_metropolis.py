@@ -54,7 +54,8 @@ class _MoveParams(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in
                 ("num_chains", "n", "num_moves", "fast_math", "num_wells")] + [
-        ("seed", ctypes.c_uint), ("calls", ctypes.c_uint)] + [
+        ("seed", ctypes.c_uint), ("calls", ctypes.c_uint),
+        ("chain_offset", ctypes.c_uint)] + [
         (name, ctypes.c_float) for name in
         ("beta", "lx", "ly", "inv_lx", "inv_ly", "r_cut2", "hc2", "sigma2",
          "eps4", "shift", "wx0", "wy0", "wx1", "wy1", "v00", "v01", "r0", "k")]
@@ -221,9 +222,10 @@ def kernel_division(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return q
 
 
-def _params(spec: SystemSpec, beta: float, num_chains: int, num_moves: int,
-            seed: int, calls: int, fast_math: bool) -> _MoveParams:
-    """The launch's parameters; ``beta`` is NaN when a (C,) table gives
+def _params(spec: SystemSpec, beta: float, state: ChainState,
+            num_moves: int, fast_math: bool) -> _MoveParams:
+    """The launch's parameters for ``state``'s chains: its seed, calls and
+    chain offset key the randoms; ``beta`` is NaN when a (C,) table gives
     each chain its own."""
     lx, ly = spec.box.size_x, spec.box.size_y
     r_cut2 = spec.cutoff * spec.cutoff
@@ -231,9 +233,11 @@ def _params(spec: SystemSpec, beta: float, num_chains: int, num_moves: int,
     centers = well_centers(lx, ly, 2)
     v0 = list(spec.V0_list) + [0.0] * 2
     return _MoveParams(
-        num_chains=num_chains, n=spec.num_particles, num_moves=num_moves,
-        fast_math=int(fast_math), num_wells=spec.num_wells,
-        seed=seed & 0xFFFFFFFF, calls=calls & 0xFFFFFFFF,
+        num_chains=state.positions.shape[0], n=spec.num_particles,
+        num_moves=num_moves, fast_math=int(fast_math),
+        num_wells=spec.num_wells, seed=state.seed & 0xFFFFFFFF,
+        calls=state.calls & 0xFFFFFFFF,
+        chain_offset=state.chain_offset & 0xFFFFFFFF,
         beta=beta, lx=lx, ly=ly, inv_lx=1.0 / lx, inv_ly=1.0 / ly,
         r_cut2=r_cut2, hc2=spec.hard_core * spec.hard_core,
         sigma2=spec.sigma ** 2, eps4=4.0 * spec.epsilon,
@@ -284,8 +288,10 @@ def run_moves_kernel(spec: SystemSpec, beta: Beta, state: ChainState,
                      fast_math: bool = False) -> ChainState:
     """Advance every chain by ``num_moves`` moves in one kernel launch.
 
-    The randoms come from Philox keyed on ``(state.seed, chain)`` with
-    counter ``(move, state.calls)``, or from ``tables`` =
+    The randoms come from Philox keyed on ``(state.seed,
+    state.chain_offset + chain)`` (modulo 2^32) with counter ``(move,
+    state.calls)``, so a shard of a run draws its chains' streams of the
+    unsharded launch; or from ``tables`` =
     ``(p_tab, d_tab, u_tab)`` as ``metropolis.draw_tables`` makes them.
     ``margin_log`` (C, T) float32, if given, receives each move's
     ``exp(-beta dE) - u``.  ``beta`` is a float or each chain's, a (C,)
@@ -325,8 +331,8 @@ def run_moves_kernel(spec: SystemSpec, beta: Beta, state: ChainState,
         attempts=torch.empty_like(state.attempts),
         calls=state.calls + 1,
     )
-    params = _params(spec, float("nan") if beta_tab is not None else beta, c,
-                     num_moves, state.seed, state.calls, fast_math)
+    params = _params(spec, float("nan") if beta_tab is not None else beta,
+                     state, num_moves, fast_math)
     p_tab, d_tab, u_tab = tables if tables is not None else (None,) * 3
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = _entry_point()

@@ -68,15 +68,19 @@ def run_hmc(spec: SystemSpec, beta: float, state: ChainState, num_moves: int,
             num_leapfrog: int = DEFAULT_NUM_LEAPFROG) -> ChainState:
     """``num_moves`` sequential HMC trajectories of every chain, the
     randoms drawn ``RNG_CHUNK`` trajectories at a time from
-    ``generator_for(state)``; advances ``calls``."""
-    c, n = state.positions.shape[0], state.positions.shape[1]
+    ``generator_for(state)``; advances ``calls``.  The draw covers every
+    chain of the run and a shard keeps its ``global_rows()``, so a
+    sharded run equals the unsharded one; HMC has no kernel, so each rank
+    pays for the whole draw (momenta of (moves, all chains, N, 2))."""
+    c, n = state.num_global_chains, state.positions.shape[1]
+    rows = state.global_rows()
     g = generator_for(state)
     for start in range(0, num_moves, RNG_CHUNK):
         m = min(RNG_CHUNK, num_moves - start)
         p_tab = torch.randn((m, c, n, 2), generator=g, device=state.device,
-                            dtype=state.positions.dtype)
+                            dtype=state.positions.dtype)[:, rows]
         u = torch.rand((m, c), generator=g, device=state.device,
-                       dtype=state.energy.dtype)
+                       dtype=state.energy.dtype)[:, rows]
         for i in range(m):
             state = hmc_apply(spec, beta, state, p_tab[i], u[i],
                               num_leapfrog)

@@ -118,20 +118,24 @@ def run_moves(spec: SystemSpec, beta, state: ChainState,
 
     The randoms come from ``tables`` when given (each with T = num_moves
     columns) and are otherwise drawn, ``RNG_CHUNK`` moves at a time, from
-    ``generator_for(state)``.  ``margin_log`` (C, T) float32, if given,
+    ``generator_for(state)``: the tables of every chain of the run, of
+    which a shard keeps its ``global_rows()``, so that it moves its chains
+    as the unsharded run does (each rank pays for the whole draw).
+    ``margin_log`` (C, T) float32, if given,
     receives each move's ``exp(-beta dE) - u``.  ``beta``: a float or
     (C,) per chain.  Advances ``calls``.
     """
-    c = state.positions.shape[0]
-
     def chunks():
         if tables is not None:
             yield 0, tables
             return
         g = generator_for(state)
+        rows = state.global_rows()
         for start in range(0, num_moves, RNG_CHUNK):
-            yield start, draw_tables(spec, c, min(RNG_CHUNK, num_moves - start),
-                                     g, state.device)
+            drawn = draw_tables(spec, state.num_global_chains,
+                                min(RNG_CHUNK, num_moves - start), g,
+                                state.device)
+            yield start, tuple(t[rows] for t in drawn)
 
     for start, (p_tab, d_tab, u_tab) in chunks():
         for i in range(p_tab.shape[1]):

@@ -8,12 +8,19 @@ advances, so that no two segments draw the same random stream.  The move
 kernel keys its counter-based generator on ``(seed, chain)`` with counter
 ``(move, calls)``; the plain engine seeds a ``torch.Generator`` from
 ``(seed, calls)``.
+
+A state may be one rank's rows of a run sharded over ranks
+(``parallel/mesh.py::shard_chain_state``): ``chain_offset`` is the global
+index of its chain 0 and ``total_chains`` the run's chain count (None:
+its own rows).  The move kernel keys chain c on ``chain_offset + c``, and
+the plain engines draw the run's whole table and keep ``global_rows()``,
+so a shard moves its chains exactly as the unsharded run does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -39,6 +46,8 @@ class ChainState:
     prev_accepts: torch.Tensor   # (C,) int32
     seed: int = 0
     calls: int = 0               # move segments run so far
+    chain_offset: int = 0        # global index of chain 0 in a sharded run
+    total_chains: Optional[int] = None  # the run's chains; None: its own
 
     def replace(self, **changes) -> "ChainState":
         return dataclasses.replace(self, **changes)
@@ -46,6 +55,22 @@ class ChainState:
     @property
     def device(self) -> torch.device:
         return self.positions.device
+
+    @property
+    def num_global_chains(self) -> int:
+        """The chains of the whole run (this state's own if unsharded)."""
+        if self.total_chains is None:
+            return self.positions.shape[0]
+        return self.total_chains
+
+    def global_rows(self) -> slice:
+        """This state's rows of a table drawn for every chain of the run."""
+        start, stop = self.chain_offset, (self.chain_offset
+                                          + self.positions.shape[0])
+        if start < 0 or stop > self.num_global_chains:
+            raise ValueError(f"chains [{start}, {stop}) are not rows of a "
+                             f"run of {self.num_global_chains}")
+        return slice(start, stop)
 
 
 def batched_energy_virial(spec: SystemSpec, positions: torch.Tensor,

@@ -26,9 +26,15 @@ move kernel's tracked energy (no recompute per round); the kernel leaves
 the virial NaN, and a NaN swaps as harmlessly as a number.
 
 ``run_replica_exchange`` is a Python loop over rounds whose records stay
-on the device until the loop ends.  The replica-sharded swap of the JAX
-package (``swap_replicas_replica_sharded``) is multi-device and is not
-ported here.
+on the device until the loop ends.
+
+``swap_replicas_replica_sharded`` is the exchange sweep with the replica
+axis over ranks (``parallel/mesh.py``): each rank holds whole replicas,
+its rows of the replica-major state (``shard_chain_state``), and a partner
+on the next rank is reached by sending edge rows around the ring.  A
+shard's local moves are one launch of the move kernel with its replicas'
+betas; its ``chain_offset`` keeps every chain's Philox stream that of the
+unsharded launch.
 """
 
 from __future__ import annotations
@@ -161,6 +167,75 @@ def swap_replicas(betas: torch.Tensor, state: ChainState,
     if u is None:
         u = torch.rand((r, w), generator=generator, device=state.device)
     return _swap(_pairing(betas, parity), state, u)
+
+
+def swap_replicas_replica_sharded(betas: torch.Tensor, state: ChainState,
+                                  generator: Optional[torch.Generator],
+                                  parity: int, mesh,
+                                  u: Optional[torch.Tensor] = None
+                                  ) -> SwapResult:
+    """``swap_replicas`` with the replica axis over the ranks of ``mesh``
+    (a ``parallel.ChainMesh``): ``state`` is this rank's whole replicas,
+    rank r holding replicas ``[r R / world, (r + 1) R / world)`` of the
+    (R,) ladder ``betas``.
+
+    A partner can live on the neighbouring rank, so each rank sends its
+    last replica row (positions, energy, virial) to the right and its
+    first to the left (``mesh.exchange_edge_rows``); the rows that wrap
+    around the ring are masked off by ``valid``.  Every rank draws the
+    same global (R, W) uniforms from ``generator`` (seeded alike on every
+    rank) or takes ``u``, and both members of a pair read the lower
+    index's draw, so the result is bit-equal to ``swap_replicas`` on the
+    whole state.  ``accepted`` and ``edge_attempted`` are this rank's
+    rows.
+    """
+    from flowstate_tpu_torch.parallel.mesh import exchange_edge_rows
+
+    r_total = betas.shape[0]
+    if r_total % mesh.world_size:
+        raise ValueError(f"{r_total} replicas do not split over "
+                         f"{mesh.world_size} ranks")
+    r_local = r_total // mesh.world_size
+    c, n = state.positions.shape[:2]
+    if c % r_local:
+        raise ValueError(f"{c} chains are not {r_local} whole replicas")
+    w = c // r_local
+    if u is None:
+        u = torch.rand((r_total, w), generator=generator, device=state.device)
+    g0 = mesh.rank * r_local
+    gi = g0 + np.arange(r_local)
+    lower = (gi - parity) % 2 == 0
+    partner = np.where(lower, gi + 1, gi - 1)
+    valid = (partner >= 0) & (partner <= r_total - 1)
+    partner = np.clip(partner, 0, r_total - 1)
+    dev = state.device
+    ext_idx = torch.as_tensor(partner - g0 + 1, device=dev)
+
+    # one message a side: the edge rows of the three fields side by side
+    rows = torch.cat([state.positions.reshape(r_local, w * n * 2),
+                      state.energy.reshape(r_local, w),
+                      state.virial.reshape(r_local, w)], dim=1)
+    prev_last, next_first = exchange_edge_rows(rows, mesh)
+    ext = torch.cat([prev_last[None], rows, next_first[None]])[ext_idx]
+    partner_pos = ext[:, :w * n * 2].reshape(c, n, 2)
+    partner_e = ext[:, w * n * 2:w * (n * 2 + 1)]
+    partner_v = ext[:, w * (n * 2 + 1):]
+
+    gi_t = torch.as_tensor(gi, device=dev)
+    part_t = torch.as_tensor(partner, device=dev)
+    d_beta = betas[gi_t] - betas[part_t]
+    log_ratio = d_beta[:, None] * (state.energy.reshape(r_local, w)
+                                   - partner_e)
+    accept = (torch.as_tensor(valid, device=dev)[:, None]
+              & (torch.log(u[torch.minimum(gi_t, part_t)]) < log_ratio))
+    chain_accept = accept.reshape(c)
+    new_state = state.replace(
+        positions=torch.where(chain_accept[:, None, None], partner_pos,
+                              state.positions),
+        energy=torch.where(chain_accept, partner_e.reshape(c), state.energy),
+        virial=torch.where(chain_accept, partner_v.reshape(c), state.virial))
+    return SwapResult(new_state, accept,
+                      torch.as_tensor(lower & valid, device=dev))
 
 
 class ReplicaExchangeResult(NamedTuple):

@@ -18,6 +18,12 @@ Every cycle's training and big-move generators come from
 cycle)``, as in the driver's host loop, so the runner and the host loop
 give bit-equal results on the CPU.  As in JAX the runner needs the
 non-cumulative window and the pure forward-KLD loss (``check_fused``).
+
+With a ``mesh`` (``parallel.ChainMesh``) the state is this rank's shard:
+production runs on its chains, every rank trains on the pool of every
+rank's window (``all_gather_samples``, in rank order: the unsharded
+window), so the flow's parameters stay equal on every rank, and each
+rank's big move draws from the cycle's generator folded with its rank.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ import torch
 
 from flowstate_tpu_torch.mcmc.cuda_metropolis import run_production_kernel
 from flowstate_tpu_torch.mcmc.hybrid import nf_big_moves, to_centered
+from flowstate_tpu_torch.parallel.mesh import (
+    all_gather_samples, rank_generator,
+)
 from flowstate_tpu_torch.training.train import (
     TrainConfig, make_optimizer, make_train_step, train_epoch,
 )
@@ -61,17 +70,20 @@ def check_fused(config) -> None:
                          "regime the reference's full scale uses")
 
 
-def big_move(spec, config, state, model, cycle: int):
+def big_move(spec, config, state, model, cycle: int, mesh=None):
     """Cycle ``cycle``'s big move: one flow proposal per chain, its
-    proposals and uniforms from ``(master_seed + 3, cycle)``."""
-    return nf_big_moves(
-        spec, config.beta, state, model, config.half_box,
-        cycle_generator(state.device, config.master_seed + MOVE_SEED_OFFSET,
-                        cycle), paired=False)
+    proposals and uniforms from ``(master_seed + 3, cycle)``, folded with
+    the rank when a ``mesh`` is given."""
+    g = cycle_generator(state.device, config.master_seed + MOVE_SEED_OFFSET,
+                        cycle)
+    if mesh is not None:
+        g = rank_generator(g.initial_seed(), mesh)
+    return nf_big_moves(spec, config.beta, state, model, config.half_box, g,
+                        paired=False)
 
 
 def make_fused_cycles(model, spec, config, n_cycles: int,
-                      train: bool = True):
+                      train: bool = True, mesh=None):
     """A runner for ``n_cycles`` Algorithm-2 cycles of ``model`` (trained
     in place): ``run(state, start_cycle) -> (state, out)`` with ``out =
     {"loss": (n, epochs), "accepts": (n,), "positions": (n, C, T, N, 2)}``
@@ -79,7 +91,8 @@ def make_fused_cycles(model, spec, config, n_cycles: int,
 
     ``train=False`` builds frozen cycles, the finite-adaptation mode:
     production and big moves with the flow's parameters unchanged, the
-    losses NaN.
+    losses NaN.  ``mesh``: run on this rank's shard of the chains, as the
+    module's docstring says.
     """
     check_fused(config)
     c = config.num_chains
@@ -97,6 +110,8 @@ def make_fused_cycles(model, spec, config, n_cycles: int,
                 window = to_centered(
                     obs.positions.reshape(-1, spec.num_particles, 2),
                     config.half_box).to(model.dtype)
+                if mesh is not None:
+                    window = all_gather_samples(window, mesh)
                 g = cycle_generator(
                     dev, config.master_seed + TRAIN_SEED_OFFSET, cycle)
                 optimizer = make_optimizer(cfg)
@@ -111,7 +126,7 @@ def make_fused_cycles(model, spec, config, n_cycles: int,
             else:
                 losses.append(torch.full((cfg.epochs,), float("nan"),
                                          device=dev))
-            res = big_move(spec, config, state, model, cycle)
+            res = big_move(spec, config, state, model, cycle, mesh)
             state = res.state
             accepts.append(torch.sum(res.accepted.to(torch.int32)))
             positions.append(obs.positions)

@@ -222,7 +222,9 @@ def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
             "flowstate_tpu_torch.mcmc.tempering, "
             "flowstate_tpu_torch.mcmc.mala, flowstate_tpu_torch.mcmc.hmc, "
             "flowstate_tpu_torch.experiments.train_npz, "
-            "flowstate_tpu_torch.tools.tempering_check; "
+            "flowstate_tpu_torch.tools.tempering_check, "
+            "flowstate_tpu_torch.parallel, flowstate_tpu_torch.parallel.mesh, "
+            "flowstate_tpu_torch.parallel.launch, flowstate_tpu_torch.entry; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flowstate_tpu', 'matplotlib'}); "
             "print(bad); sys.exit(1 if bad else 0)")
