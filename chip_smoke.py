@@ -2881,6 +2881,294 @@ def phase_multi_device(card: str, k1_shapes=MULTI_K1, swap=MULTI_SWAP,
     return {"launches": (dry["k1_launches"], dry["k2_launches"])}
 
 
+# Phase 19: the dense flow zoo.  (a) the circular autoregressive spline as
+# A1's big-move proposal at A1's widths (utils/config.py: K 15, hidden 256,
+# 32 bins; MADE's 2 blocks, tail bound L/2); (b) the normflows README's
+# RealNVP and (c) neural-spline examples as the JAX classes express them,
+# on TwoMoons; (d) HAIS on tests/test_flow_zoo.py's target
+ZOO_A = dict(K=15, hidden=256, bins=32, blocks=2)
+ZOO_SAMPLE_BLOCKS = 100       # K1 launches of 150 moves at 100 chains
+ZOO_EPOCHS = 3                # of training.train at batch 512 on them
+ZOO_LR = 1e-3
+ZOO_ROUNDS = {100: 10, 16384: 3}   # big-move rounds at each chain count
+ZOO_LOG_Q_RTOL = 1e-3         # log_prob of a sample vs its fused log q
+# Adam steps of (b) and (c) at batch 512, cut from a few hundred so that
+# phase 19 stays within 60 s (200 each took 32 s of its 67)
+ZOO_TOY_STEPS = 100
+# (b) and (c): forward then inverse of 4,096 base points.  In float32
+# the errors grow with |x| through the layers, and the worst points (in
+# the Gaussian's tails) read 1.55e-4 for (b) and 6.8e-4 for (c) on the
+# card (3.2e-4 for (c) on a CPU, 1.8e-5 at its 99th percentile), so the
+# 99th percentile is held within ZOO_TRIP_ATOL and the largest printed;
+# the same flow cast to float64 within ZOO_TRIP_F64 at every point
+ZOO_TRIP_QUANTILE = 0.99
+ZOO_TRIP_ATOL = 1e-4
+ZOO_TRIP_F64 = 1e-10
+ZOO_HAIS = dict(samples=4096, tol=0.25)   # test_flow_zoo.py's bound
+
+
+def zoo_toy_flow(card: str, label: str, flow, steps: int, lr: float,
+                 weight_decay: float = 0.0) -> dict:
+    """The normflows README's loop on TwoMoons at batch 512: torch's Adam,
+    ``forward_kld`` with the base term, a step only on a finite loss.
+    The loss falls (the last 20 steps' mean below the first 20's) and
+    forward then inverse returns its input: the ``ZOO_TRIP_QUANTILE`` of
+    the float32 errors within ``ZOO_TRIP_ATOL``, every float64 error (the
+    same flow cast) within ``ZOO_TRIP_F64``."""
+    import copy
+
+    import torch
+
+    from flowstate_tpu_torch.flows import TwoMoons
+
+    target = TwoMoons()
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(71)
+    opt = torch.optim.Adam(flow.parameters(), lr=lr,
+                           weight_decay=weight_decay)
+    losses = []
+
+    def step():
+        x = target.sample(512, g, DEVICE)
+        loss = flow.forward_kld(x, include_base=True)
+        if torch.isfinite(loss):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+        losses.append(loss.detach())
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+    timing = per_call(step, 1)
+    losses = torch.stack(losses).cpu()
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    require(bool(torch.isfinite(losses).all()) and last < first,
+            f"{label}: loss {first} -> {last} over {steps} steps")
+    with torch.no_grad():
+        z = flow.base.sample(4096, g, DEVICE)
+        err = (flow.inverse(flow.forward(z)) - z).abs().flatten()
+        flow64 = copy.deepcopy(flow).double()
+        z64 = z.double()
+        trip64 = float((flow64.inverse(flow64.forward(z64)) - z64).abs()
+                       .max())
+    trip = float(err.max())
+    trip_q = float(torch.quantile(err, ZOO_TRIP_QUANTILE))
+    require(trip_q <= ZOO_TRIP_ATOL and trip64 <= ZOO_TRIP_F64,
+            f"{label}: round trip error {trip_q} at the quantile "
+            f"{ZOO_TRIP_QUANTILE} (largest {trip}), {trip64} in float64")
+    out = {"ms": ms, **timing, "loss_first": first, "loss_last": last,
+           "trip_err": trip, "trip_err_q": trip_q, "trip_err_f64": trip64}
+    phase(f"19{label[0]} {label[2:]}", card=f"'{card}'", steps=steps,
+          batch=512, step_ms=f"{ms:.3f}", step_kernels=timing["kernels"],
+          step_device_ms=("not_measured" if timing["device_ms"] is None
+                          else f"{timing['device_ms']:.3f}"),
+          loss_first20=f"{first:.4f}", loss_last20=f"{last:.4f}",
+          round_trip_err=f"{trip:.3g}",
+          round_trip_err_q99=f"{trip_q:.3g}",
+          round_trip_err_float64=f"{trip64:.3g}")
+    return out
+
+
+def phase_zoo(card: str, rounds: dict = None, sample_blocks: int =
+              ZOO_SAMPLE_BLOCKS, epochs: int = ZOO_EPOCHS,
+              toy_steps: int = ZOO_TOY_STEPS, a_widths: dict = None,
+              hais_samples: int = ZOO_HAIS["samples"]) -> dict:
+    """The dense flow zoo on the card.  (a) K=15 circular autoregressive
+    spline layers over ``UniformParticle(3, 2, L/2)``, every coordinate
+    circular, at A1's widths: samples from K1 at 100 chains, ``training.
+    train`` at batch 512, then ``nf_big_moves`` rounds at 100 and 16,384
+    chains, K2 pricing the proposals; K1's and K2's launches by their
+    wrappers' counts and by the profiler (at least one record each, F6),
+    the acceptance in (0, 1], every ratio finite or -inf (an overlapping
+    proposal), ``log_prob`` of the proposals against their fused log q;
+    ms, kernels and device ms a round.  (b) and (c) the normflows
+    examples, (d) HAIS's log Z."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch import flows as F
+    from flowstate_tpu_torch.mcmc import (
+        init_alternating_wells, init_chain_state, nf_big_moves,
+        run_moves_auto, to_centered,
+    )
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.mcmc.state import batched_energy_virial
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.training import TrainConfig, train
+
+    rounds = rounds or ZOO_ROUNDS
+    w = a_widths or ZOO_A
+    spec = reference_spec(3)
+    hb = spec.box.size_x / 2.0
+    t_phase = time.perf_counter()
+
+    def gen(seed):
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(seed)
+        return g
+
+    # (a) the slice's path ------------------------------------------
+    g = gen(61)
+    layer = F.CircularAutoregressiveRationalQuadraticSpline(
+        6, w["blocks"], w["hidden"], ind_circ=tuple(range(6)),
+        num_bins=w["bins"], tail_bound=hb)
+    flow = F.NormalizingFlow(
+        F.UniformParticle(3, 2, hb),
+        [F.ParamLayer(layer, g, device=DEVICE) for _ in range(w["K"])],
+        device=DEVICE)
+    cm.LAUNCHES = cp.LAUNCHES = 0
+    pos, _ = init_alternating_wells(100, 3, 0.03)
+    state = init_chain_state(spec, torch.as_tensor(pos, device=DEVICE), 62,
+                             0.65)
+    state = run_moves_auto(spec, 1.0, state, 5000)
+    samples = []
+    for _ in range(sample_blocks):
+        state = run_moves_auto(spec, 1.0, state, 150)
+        samples.append(to_centered(state.positions, hb))
+    data = torch.cat(samples)
+    t0 = time.perf_counter()
+    _, _, history, loss_epoch = train(
+        flow, data, TrainConfig(batch_size=512, epochs=epochs, lr=ZOO_LR),
+        gen(63))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    require(all(math.isfinite(v) for v in loss_epoch),
+            f"zoo (a): epoch losses {loss_epoch}")
+    big_c = max(rounds)
+    pos_big, _ = init_alternating_wells(big_c, 3, 0.03)
+    big = init_chain_state(spec, torch.as_tensor(pos_big, device=DEVICE),
+                           64, 0.65)
+    big = run_moves_auto(spec, 1.0, big, 1000)
+    states = {100: state, big_c: big}
+    accepted = attempted = 0
+    ratios_ok = True
+    with torch.no_grad():
+        for c, n in rounds.items():
+            s = states[c]
+            for _ in range(n):
+                res = nf_big_moves(spec, 1.0, s, flow, hb, g)
+                s = res.state
+                accepted += int(res.accepted.sum())
+                attempted += c
+                r = res.ratio_log
+                ratios_ok &= bool((torch.isfinite(r) | torch.isneginf(r))
+                                  .all())
+            states[c] = s
+    torch.cuda.synchronize()
+    launches = (cm.LAUNCHES, cp.LAUNCHES)
+    expected_k2 = 2 + sum(rounds.values())   # the two states' energies
+    require(launches == (sample_blocks + 2, expected_k2),
+            f"zoo (a): K1, K2 launched {launches} times, the path implies "
+            f"{(sample_blocks + 2, expected_k2)}")
+    acceptance = accepted / attempted
+    require(0.0 < acceptance <= 1.0, f"zoo (a): acceptance {acceptance}")
+    require(ratios_ok, "zoo (a): a NaN or +inf MH log-ratio")
+
+    with torch.no_grad():
+        xs, lq = flow.sample_and_log_prob(16384, g)
+        lp = flow.log_prob(xs)
+    d = (lp - lq).abs()
+    lq_rel = float((d / (1.0 + lq.abs())).max())
+    require(bool(torch.isfinite(lq).all()) and lq_rel <= ZOO_LOG_Q_RTOL,
+            f"zoo (a): log_prob vs fused log q {lq_rel} relative")
+
+    # the profiler sees K1 and K2.  It loses records, the more the longer
+    # the process has run (F6: of 20 K1 calls in a window, 20 before
+    # phase 16, 10 or 20 after it, 4 after phase 17, 3 or 20 after phase
+    # 18, none in two windows of one run), so up to five windows of 20
+    # calls of each at the path's shapes, until both are recorded
+    def k1_and_k2():
+        run_moves_auto(spec, 1.0, states[100], 150)
+        batched_energy_virial(spec, states[big_c].positions)
+
+    seen = {"metropolis_moves_kernel": 0, "pair_": 0}
+    for _ in range(5):
+        for e in device_kernels(k1_and_k2, 20):
+            for name in seen:
+                seen[name] += name in e.name
+        if all(seen.values()):
+            break
+    k1_seen, k2_seen = seen.values()
+    require(k1_seen >= 1 and k2_seen >= 1,
+            f"zoo (a): in five profiled windows K1 was recorded {k1_seen} "
+            f"and K2 {k2_seen} times")
+
+    per_round = {}
+    with torch.no_grad():
+        for c in rounds:
+            def round_fn(c=c):
+                return nf_big_moves(spec, 1.0, states[c], flow, hb, g)
+
+            per_round[c] = {"ms": median_ms(round_fn, 3),
+                            **per_call(round_fn, 1)}
+    for c, v in per_round.items():
+        print(f"  zoo (a) big-move round at {c} chains: " + " ".join(
+            f"{k}={v[k]:.4f}" if isinstance(v[k], float) else f"{k}={v[k]}"
+            for k in v), flush=True)
+    steps = len(history)
+    phase("19a zoo circular autoregressive", card=f"'{card}'", K=w["K"],
+          hidden=w["hidden"], bins=w["bins"], samples=len(data),
+          train_steps=steps, train_ms_per_step=f"{train_s / steps * 1e3:.3f}",
+          final_epoch_loss=f"{loss_epoch[-1]:.4f}",
+          k1_launches=launches[0], k2_launches=launches[1],
+          profiler_k1=k1_seen, profiler_k2=k2_seen,
+          acceptance=f"{acceptance:.5f}", attempts=attempted,
+          log_q_rel=f"{lq_rel:.3g}",
+          **{f"round_{c}_ms": f"{v['ms']:.3f}" for c, v in per_round.items()},
+          **{f"round_{c}_kernels": v["kernels"]
+             for c, v in per_round.items()},
+          **{f"round_{c}_device_ms": ("not_measured" if v["device_ms"] is None
+                                      else f"{v['device_ms']:.3f}")
+             for c, v in per_round.items()})
+    del flow, states, big, state
+    torch.cuda.empty_cache()
+
+    # (b) RealNVP, (c) the neural-spline flow, on TwoMoons -------------
+    g = gen(65)
+    realnvp = F.NormalizingFlow(F.DiagGaussian(2), [
+        F.ParamLayer(l, g, device=DEVICE) for _ in range(32)
+        for l in (F.AffineCouplingBlock(F.MLP((1, 64, 64, 2),
+                                              init_zeros=True)),
+                  F.Permute(2, "swap"))], device=DEVICE)
+    b = zoo_toy_flow(card, "b realnvp", realnvp, toy_steps, 5e-4, 1e-5)
+    nsf = F.NormalizingFlow(F.DiagGaussian(2, trainable=False), [
+        F.ParamLayer(l, g, device=DEVICE) for _ in range(16)
+        for l in (F.AutoregressiveRationalQuadraticSpline(2, 2, 128),
+                  F.LULinearPermute(2))], device=DEVICE)
+    c_ = zoo_toy_flow(card, "c neural spline", nsf, toy_steps, 5e-4)
+
+    # (d) HAIS --------------------------------------------------------
+    class Target:
+        """Unnormalised N(0, 0.5^2 I) times C, log C = 1.7."""
+
+        def log_prob(self, z):
+            return -(z ** 2).sum(-1) / (2 * 0.25) + 1.7
+
+    hais = F.HAIS(tuple(np.linspace(1.0, 0.0, 12)), F.DiagGaussian(2),
+                  Target(), num_leapfrog=3, dim=2, step_size=0.2)
+    g = gen(66)
+    t0 = time.perf_counter()
+    _, log_w = hais.sample(hais.init_params(g, device=DEVICE), hais_samples,
+                           g, DEVICE)
+    est = float(torch.logsumexp(log_w, 0) - math.log(hais_samples))
+    hais_s = time.perf_counter() - t0
+    exact = 1.7 + math.log(2 * math.pi * 0.25)
+    require(abs(est - exact) < ZOO_HAIS["tol"],
+            f"HAIS log Z {est}, exact {exact}")
+    wall = time.perf_counter() - t_phase
+    phase("19d hais", card=f"'{card}'", samples=hais_samples,
+          log_z=f"{est:.4f}", exact=f"{exact:.4f}", ms=f"{hais_s * 1e3:.1f}",
+          phase_19_s=f"{wall:.1f}")
+    return {"launches": launches, "acceptance": acceptance,
+            "rounds": per_round, "realnvp": b, "nsf": c_, "hais": est,
+            "wall_s": wall}
+
+
 def layer_slices(stacked: dict, k: int) -> list:
     """The K per-layer trees of a stacked tree (leaves (K, ...)), as an
     unstacked flow holds them."""
@@ -2924,6 +3212,7 @@ def main() -> int:
     samplers = phase_samplers(card)
     nets = phase_nets(card)
     multi = phase_multi_device(card)
+    zoo = phase_zoo(card)
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{
@@ -2939,6 +3228,7 @@ def main() -> int:
         "launches_pt": samplers["launches_pt"][0],
         "launches_nets": {k: nets[k]["a1"]["launches"][0] for k in NETS},
         "launches_multi": multi["launches"][0],
+        "launches_zoo": zoo["launches"][0],
         "max_abs_err": max(err, samplers["max_abs_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -2959,6 +3249,7 @@ def main() -> int:
         "launches_mala_hmc": samplers["launches_mala_hmc"],
         "launches_nets": {k: nets[k]["a1"]["launches"][1] for k in NETS},
         "launches_multi": multi["launches"][1],
+        "launches_zoo": zoo["launches"][1],
         "max_abs_err": err_k2,
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

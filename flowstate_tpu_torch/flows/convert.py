@@ -19,6 +19,15 @@ tuple of K such trees without the K axis, one per ``ParamLayer``.  The
 port keeps the same trees (``flows/core.py::ParamTree``), so the
 carry-over is a copy leaf by leaf with the structure and the shapes
 checked.  Leaves are numpy arrays on the JAX side.
+
+The flow zoo's layers (``flows.core.ParamLayer`` over an ``affine``,
+``mixing``, ``autoregressive``, ... configuration) keep their JAX trees
+too, so a ``NormalizingFlow`` or ``ClassCondFlow`` of them is a tuple of
+those trees (``{}`` for a layer without parameters, ``None`` for a
+missing net).  A module with one tree of its own, ``ParamLayer`` (a
+single layer, or a trainable base's ``{"loc", "log_scale"}``) or
+``NormalizingFlowVAE`` (``{"encoder", "flows", "decoder"}``), carries
+that tree alone.
 """
 
 from __future__ import annotations
@@ -32,22 +41,33 @@ from torch import nn
 from flowstate_tpu_torch.flows.core import tree_map
 
 
+def _has_layers(module: nn.Module) -> bool:
+    return hasattr(module, "layers")
+
+
 def _layer_trees(flow: nn.Module):
     return [layer.params.tree() for layer in flow.layers]
 
 
 def params_from_jax(tree: Sequence, flow: nn.Module) -> nn.Module:
     """Copy the JAX parameter tuple ``tree`` (numpy leaves) into ``flow``
-    (a ``NormalizingFlow`` or ``ConditionalNormalizingFlow``), in the
-    flow's dtype and on its device; returns ``flow``."""
-    if isinstance(tree, dict):
-        tree = (tree,)
-    ours = _layer_trees(flow)
-    if len(tree) != len(ours):
-        raise ValueError(f"{len(tree)} layer trees for a flow of "
-                         f"{len(ours)} layers")
+    (a ``NormalizingFlow``, ``ConditionalNormalizingFlow`` or
+    ``ClassCondFlow``), or the one tree of a ``ParamLayer`` or
+    ``NormalizingFlowVAE``, in the module's dtype and on its device;
+    returns ``flow``."""
+    if _has_layers(flow):
+        if isinstance(tree, dict):
+            tree = (tree,)
+        ours = _layer_trees(flow)
+        if len(tree) != len(ours):
+            raise ValueError(f"{len(tree)} layer trees for a flow of "
+                             f"{len(ours)} layers")
+    else:
+        tree, ours = (tree,), (flow.params.tree(),)
 
     def copy(dst: torch.Tensor, src) -> None:
+        if src is None:
+            raise ValueError("a None leaf for a tensor of the flow")
         src = np.asarray(src)
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"leaf of shape {src.shape}, the flow's is "
@@ -64,7 +84,11 @@ def params_from_jax(tree: Sequence, flow: nn.Module) -> nn.Module:
 def _check_structure(dst, src, path: str = "") -> None:
     """The same dict keys and list lengths at every level (a conditional
     tree's ``ctx`` leaves against an unconditional flow, and back)."""
-    if isinstance(dst, dict):
+    if dst is None:
+        if src is not None:
+            raise ValueError(f"tree at {path or '/'} has leaves where the "
+                             f"flow has none")
+    elif isinstance(dst, dict):
         if not isinstance(src, dict) or set(dst) != set(src):
             raise ValueError(f"tree at {path or '/'} does not have the "
                              f"flow's keys {sorted(dst)}")
@@ -78,7 +102,13 @@ def _check_structure(dst, src, path: str = "") -> None:
             _check_structure(d, s_, f"{path}/{i}")
 
 
-def params_to_jax(flow: nn.Module) -> tuple:
-    """The flow's parameters in the JAX layout, as numpy arrays."""
-    return tuple(tree_map(lambda t: t.detach().cpu().numpy(), tree)
-                 for tree in _layer_trees(flow))
+def params_to_jax(flow: nn.Module):
+    """The flow's parameters in the JAX layout, as numpy arrays: a tuple
+    of layer trees, or a ``ParamLayer``'s or ``NormalizingFlowVAE``'s one
+    tree."""
+    def to_numpy(tree):
+        return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+    if not _has_layers(flow):
+        return to_numpy(flow.params.tree())
+    return tuple(to_numpy(tree) for tree in _layer_trees(flow))

@@ -26,6 +26,7 @@ latent (log_prob).
 
 from __future__ import annotations
 
+import itertools
 import pickle
 from typing import Callable, Optional, Sequence
 
@@ -40,7 +41,10 @@ from flowstate_tpu_torch.flows.nets import Tree
 
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of nested dicts and lists (JAX's
-    ``tree_map`` on the parameter trees)."""
+    ``tree_map`` on the parameter trees); a ``None`` is an empty subtree,
+    as in JAX (``MaskedAffineFlow``'s missing scale net)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
@@ -49,29 +53,51 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def placement(module: nn.Module):
+    """``(device, dtype)`` of ``module``: the first parameter's or buffer's
+    device and the first floating one's dtype, else the module's
+    ``_placement`` (given when it was built)."""
+    device, dtype = module._placement
+
+    def tensors():
+        return itertools.chain(module.parameters(), module.buffers())
+
+    first = next(tensors(), None)
+    floating = next((t for t in tensors() if t.is_floating_point()), None)
+    return (device if first is None else first.device,
+            dtype if floating is None else floating.dtype)
+
+
 class ParamTree(nn.Module):
     """A parameter tree of nested dicts and lists held as ``nn.Parameter``
-    leaves, named by their path (``net.blocks.0.l1.w``)."""
+    leaves, named by their path (``net.blocks.0.l1.w``).  The root may be
+    a dict or a list (``Composite``'s tuple of trees, MADE's list of
+    linears, HAIS's list of layers); ``None`` leaves stay ``None``."""
 
     def __init__(self, tree: Tree):
         super().__init__()
-        self._keys = list(tree)
-        for k, v in tree.items():
-            if isinstance(v, torch.Tensor):
+        self._is_list = isinstance(tree, (list, tuple))
+        items = enumerate(tree) if self._is_list else tree.items()
+        self._keys = []
+        self._none = set()
+        for k, v in items:
+            k = str(k)
+            self._keys.append(k)
+            if v is None:
+                self._none.add(k)
+            elif isinstance(v, torch.Tensor):
                 self.register_parameter(k, nn.Parameter(v))
-            elif isinstance(v, dict):
-                self.add_module(k, ParamTree(v))
             else:
-                self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
+                self.add_module(k, ParamTree(v))
 
     def tree(self) -> Tree:
-        out = {}
+        out = [] if self._is_list else {}
         for k in self._keys:
-            v = getattr(self, k)
+            v = None if k in self._none else getattr(self, k)
             if isinstance(v, ParamTree):
-                out[k] = v.tree()
-            elif isinstance(v, nn.ModuleList):
-                out[k] = [m.tree() for m in v]
+                v = v.tree()
+            if self._is_list:
+                out.append(v)
             else:
                 out[k] = v
         return out
@@ -79,21 +105,24 @@ class ParamTree(nn.Module):
 
 class ParamLayer(nn.Module):
     """One layer of a configuration with its own parameter tree, drawn
-    from ``generator``."""
+    from ``generator``.  The configuration is any object with
+    ``init_params(generator, dtype=, device=)`` and ``forward`` /
+    ``inverse(params, z, ...)``: a coupling, a layer of the flow zoo, or a
+    base whose tree is trained (``DiagGaussian``; its ``sample`` and
+    ``log_prob`` then take ``params.tree()``)."""
 
-    def __init__(self, layer: CircularSplineCoupling,
-                 generator: Optional[torch.Generator] = None,
+    def __init__(self, layer, generator: Optional[torch.Generator] = None,
                  dtype=torch.float32, device="cuda"):
         super().__init__()
         self.layer = layer
         self.params = ParamTree(layer.init_params(generator, dtype=dtype,
                                                   device=device))
 
-    def forward(self, z: torch.Tensor, context=None):
-        return self.layer.forward(self.params.tree(), z, context)
+    def forward(self, z, *args, **kwargs):
+        return self.layer.forward(self.params.tree(), z, *args, **kwargs)
 
-    def inverse(self, x: torch.Tensor, context=None):
-        return self.layer.inverse(self.params.tree(), x, context)
+    def inverse(self, x, *args, **kwargs):
+        return self.layer.inverse(self.params.tree(), x, *args, **kwargs)
 
 
 class ScannedLayers(nn.Module):
@@ -151,23 +180,30 @@ class NormalizingFlow(nn.Module):
 
     Each layer's ``forward`` / ``inverse`` return ``(z, log_det)``.
     Sampling takes an explicit ``torch.Generator`` on the flow's device.
-    ``target`` (optional) exposes ``energy(x)`` for ``reverse_kld``.
+    ``target`` (optional) exposes ``energy(x)`` for ``reverse_kld``.  The
+    base is any of ``flows.distributions``; its ``log_prob`` is taken
+    without parameters, as JAX's flow does, so a trainable base (such as
+    ``DiagGaussian``) stays at its init and adds nothing to
+    ``parameters()``.  ``device`` and ``dtype`` are those of the first
+    parameter or buffer; a flow without either (``Permute``,
+    ``PeriodicWrap`` over ``UniformBase``) takes the ones given here.
     """
 
-    def __init__(self, base: UniformParticle, layers: Sequence[nn.Module],
-                 target=None):
+    def __init__(self, base, layers: Sequence[nn.Module], target=None,
+                 device="cuda", dtype=torch.float32):
         super().__init__()
         self.base = base
         self.layers = nn.ModuleList(layers)
         self.target = target
+        self._placement = (torch.device(device), dtype)
 
     @property
     def device(self) -> torch.device:
-        return next(self.parameters()).device
+        return placement(self)[0]
 
     @property
     def dtype(self) -> torch.dtype:
-        return next(self.parameters()).dtype
+        return placement(self)[1]
 
     # ----- transforms ---------------------------------------------------
 

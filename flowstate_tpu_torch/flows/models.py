@@ -1,12 +1,18 @@
-"""The conditional normalizing flow: every layer takes one context.
+"""More flow models: the conditional flow and its context coupling, and
+the class-conditional flow.
 
-Port of ``flowstate_tpu/flows/models.py::ConditionalNormalizingFlow``
-(:82-177), the blocked move's proposal (``mcmc/blocked.py``): a
-context-free ``UniformParticle`` base over the block's coordinates and
-layers whose ``forward`` / ``inverse`` take ``context``
-(``flows/core.py::build_conditional_circular_flow``).  The JAX module's
-``ContextAffineCoupling``, ``ClassCondFlow`` and ``MultiscaleFlow`` are
-ROADMAP queue 1 item 14b.
+Port of ``flowstate_tpu/flows/models.py``:
+
+* ``ContextAffineCoupling`` (:24-80): an affine coupling whose net sees
+  the identity half and the context, scale ``sigmoid(s + 2) + 1e-3``;
+* ``ConditionalNormalizingFlow`` (:82-177), the blocked move's proposal
+  (``mcmc/blocked.py``): a context-free ``UniformParticle`` base over the
+  block's coordinates and layers whose ``forward`` / ``inverse`` take
+  ``context`` (``flows/core.py::build_conditional_circular_flow``);
+* ``ClassCondFlow`` (:184-211): the class label reaches the base only.
+
+``MultiscaleFlow`` (:213) waits with the image layers (ROADMAP queue 1
+item 14c).
 
 Directions as in ``NormalizingFlow``: ``forward`` is latent -> data
 (sampling), ``inverse`` data -> latent (log_prob).
@@ -14,14 +20,69 @@ Directions as in ``NormalizingFlow``: ``forward`` is latent -> data
 
 from __future__ import annotations
 
+import dataclasses
 import pickle
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from flowstate_tpu_torch.flows.core import ScannedLayers
+from flowstate_tpu_torch.flows.nets import MLP
+
+from flowstate_tpu_torch.flows.core import ScannedLayers, placement
 from flowstate_tpu_torch.flows.distributions import UniformParticle
+
+
+@dataclasses.dataclass(frozen=True)
+class ContextAffineCoupling:
+    """An affine coupling whose net (an ``MLP`` starting at zero output)
+    sees ``[identity half, context]``; ``flip`` transforms the other
+    half."""
+
+    features: int
+    context_features: int
+    hidden_features: int = 64
+    flip: bool = False
+
+    def _split(self, z):
+        half = self.features // 2
+        if self.flip:
+            return z[:, half:], z[:, :half]
+        return z[:, :half], z[:, half:]
+
+    def _join(self, ident, trans):
+        if self.flip:
+            return torch.cat([trans, ident], dim=-1)
+        return torch.cat([ident, trans], dim=-1)
+
+    def _net(self) -> MLP:
+        half = self.features // 2
+        out = 2 * (self.features - half)
+        return MLP((half + self.context_features, self.hidden_features,
+                    self.hidden_features, out), init_zeros=True)
+
+    def init_params(self, generator: Optional[torch.Generator] = None,
+                    dtype=torch.float32, device="cuda"):
+        return {"net": self._net().init_params(generator, dtype=dtype,
+                                               device=device)}
+
+    def _shift_log_scale(self, params, ident, context):
+        raw = self._net().apply(params["net"],
+                                torch.cat([ident, context], dim=-1))
+        shift, s = torch.chunk(raw, 2, dim=-1)
+        return shift, torch.log(torch.sigmoid(s + 2.0) + 1e-3)
+
+    def forward(self, params, z, context=None):
+        ident, trans = self._split(z)
+        shift, log_scale = self._shift_log_scale(params, ident, context)
+        trans = trans * torch.exp(log_scale) + shift
+        return self._join(ident, trans), torch.sum(log_scale, dim=-1)
+
+    def inverse(self, params, x, context=None):
+        ident, trans = self._split(x)
+        shift, log_scale = self._shift_log_scale(params, ident, context)
+        trans = (trans - shift) * torch.exp(-log_scale)
+        return self._join(ident, trans), -torch.sum(log_scale, dim=-1)
 
 
 class ConditionalNormalizingFlow(nn.Module):
@@ -30,18 +91,20 @@ class ConditionalNormalizingFlow(nn.Module):
     ``context`` is (B, F), one row per sample; sampling takes an explicit
     ``torch.Generator`` on the flow's device."""
 
-    def __init__(self, base: UniformParticle, layers: Sequence[nn.Module]):
+    def __init__(self, base: UniformParticle, layers: Sequence[nn.Module],
+                 device="cuda", dtype=torch.float32):
         super().__init__()
         self.base = base
         self.layers = nn.ModuleList(layers)
+        self._placement = (torch.device(device), dtype)
 
     @property
     def device(self) -> torch.device:
-        return next(self.parameters()).device
+        return placement(self)[0]
 
     @property
     def dtype(self) -> torch.dtype:
-        return next(self.parameters()).dtype
+        return placement(self)[1]
 
     def forward_and_log_det(self, z: torch.Tensor, context=None):
         log_det = torch.zeros_like(z[:, 0])
@@ -124,3 +187,43 @@ class ConditionalNormalizingFlow(nn.Module):
 
         with open(path, "rb") as f:
             return params_from_jax(pickle.load(f), self)
+
+
+class ClassCondFlow(nn.Module):
+    """A chain of layers over a class-conditional base: ``log_prob(x, y)``
+    and ``sample(num_samples, y, generator)`` hand the one-hot labels
+    ``y`` to the base (``base.log_prob(z, y)``, ``base.sample(n, y,
+    generator)``), not to the layers."""
+
+    def __init__(self, base, layers: Sequence[nn.Module], device="cuda",
+                 dtype=torch.float32):
+        super().__init__()
+        self.base = base
+        self.layers = nn.ModuleList(layers)
+        self._placement = (torch.device(device), dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return placement(self)[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return placement(self)[1]
+
+    def log_prob(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        log_q = torch.zeros_like(x[:, 0])
+        z = x
+        for layer in reversed(self.layers):
+            z, ld = layer.inverse(z)
+            log_q = log_q + ld
+        return log_q + self.base.log_prob(z, y)
+
+    def forward_kld(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return -torch.mean(self.log_prob(x, y))
+
+    def sample(self, num_samples: int, y: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        z = self.base.sample(num_samples, y, generator).to(self.dtype)
+        for layer in self.layers:
+            z, _ = layer.forward(z)
+        return z

@@ -254,7 +254,8 @@ def make_data_parallel_train_step(model, config: TrainConfig,
             rkld, _ = model.reverse_kld(local_samples, local_generator)
             rkld = (1.0 - config.alpha) * rkld
             loss = rkld if loss is None else loss + rkld
-        grads = torch.autograd.grad(loss, params)
+        grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                    materialize_grads=True)
         flat = torch.cat([g.reshape(-1) for g in grads]
                          + [loss.detach().reshape(1).to(grads[0].dtype)])
         dist.all_reduce(flat)

@@ -125,7 +125,10 @@ def make_train_step(model, config: TrainConfig, optimizer: Adam,
             rkld, _ = model.reverse_kld(config.reverse_num_samples, generator)
             rkld = (1.0 - config.alpha) * rkld
             loss = rkld if loss is None else loss + rkld
-        grads = torch.autograd.grad(loss, params)
+        # a parameter the loss does not reach (an AffineConstFlow's shift
+        # under the base-free loss) takes a zero gradient, as in JAX
+        grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                    materialize_grads=True)
         finite = torch.isfinite(loss)
         grads = [torch.where(finite, torch.nan_to_num(g), torch.zeros_like(g))
                  for g in grads]

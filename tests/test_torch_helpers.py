@@ -20,12 +20,14 @@ import pytest
 import torch
 
 import flowstate_tpu.analysis as janalysis
+import flowstate_tpu.flows as jflows
 import flowstate_tpu.ops as jops
 import flowstate_tpu.training as jtraining
 import flowstate_tpu.utils as jutils
 from flowstate_tpu.analysis import plots as jplots
 from flowstate_tpu.utils import logging as jlogging
 import flowstate_tpu_torch.analysis as tanalysis
+import flowstate_tpu_torch.flows as tflows
 import flowstate_tpu_torch.ops as tops
 import flowstate_tpu_torch.training as ttraining
 import flowstate_tpu_torch.utils as tutils
@@ -41,13 +43,25 @@ TIGHT = dict(rtol=1e-12, atol=1e-12)
 WELLS_F32 = dict(rtol=1e-6, atol=1e-6)
 # ROADMAP "Not to port": the XLA compilation cache
 NOT_PORTED = {"enable_compilation_cache"}
+# not ported yet: the image, residual and Lipschitz layers, GlowBase and
+# MultiscaleFlow (ROADMAP queue 1 item 14c)
+DEFERRED = {
+    "ActNormImage", "ConvNet2d", "ConvResidualNet", "GlowBlock", "GlowBase",
+    "MultiscaleFlow", "Residual", "LipschitzMLP", "LipschitzCNN", "lipswish",
+    "geometric_sample", "poisson_sample", "batch_jacobian", "batch_trace",
+    "leaky_elu", "asym_squash", "InducedNormLinear", "InducedNormConv2d",
+    "InducedNormMLP", "InducedNormCNN", "normalize_u", "normalize_v",
+    "projmax", "vector_norm",
+}
 
 
 @pytest.mark.parametrize("jax_pkg,port_pkg", [
     (jops, tops), (jutils, tutils), (janalysis, tanalysis),
-    (jtraining, ttraining)], ids=["ops", "utils", "analysis", "training"])
+    (jtraining, ttraining), (jflows, tflows)],
+    ids=["ops", "utils", "analysis", "training", "flows"])
 def test_port_exports_the_jax_packages_public_names(jax_pkg, port_pkg):
-    missing = set(jax_pkg.__all__) - NOT_PORTED - set(port_pkg.__all__)
+    missing = (set(jax_pkg.__all__) - NOT_PORTED - DEFERRED
+               - set(port_pkg.__all__))
     assert not missing, sorted(missing)
     for name in port_pkg.__all__:
         assert getattr(port_pkg, name) is not None, name

@@ -224,7 +224,22 @@ def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
             "flowstate_tpu_torch.experiments.train_npz, "
             "flowstate_tpu_torch.tools.tempering_check, "
             "flowstate_tpu_torch.parallel, flowstate_tpu_torch.parallel.mesh, "
-            "flowstate_tpu_torch.parallel.launch, flowstate_tpu_torch.entry; "
+            "flowstate_tpu_torch.parallel.launch, flowstate_tpu_torch.entry, "
+            "flowstate_tpu_torch.flows.affine, "
+            "flowstate_tpu_torch.flows.autoregressive, "
+            "flowstate_tpu_torch.flows.base, "
+            "flowstate_tpu_torch.flows.distributions, "
+            "flowstate_tpu_torch.flows.elementary, "
+            "flowstate_tpu_torch.flows.mixing, "
+            "flowstate_tpu_torch.flows.models, "
+            "flowstate_tpu_torch.flows.normalization, "
+            "flowstate_tpu_torch.flows.periodic, "
+            "flowstate_tpu_torch.flows.reshape, "
+            "flowstate_tpu_torch.flows.sampling, "
+            "flowstate_tpu_torch.flows.stochastic, "
+            "flowstate_tpu_torch.flows.toy_targets, "
+            "flowstate_tpu_torch.flows.transforms, "
+            "flowstate_tpu_torch.flows.utils, flowstate_tpu_torch.flows.vae; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flowstate_tpu', 'matplotlib'}); "
             "print(bad); sys.exit(1 if bad else 0)")
