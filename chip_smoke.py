@@ -24,9 +24,17 @@ samplers: K1 with a beta per chain, TEMPERING.md's parallel-tempering run
 with a resume, MALA and HMC, and the NPZ trainer, and runs the
 transformer and the gnn conditioner nets at N=8 at full width, with
 Algorithm 1 through each, and the residual flow in bf16 and unstacked,
-and runs the multi-device layer: K1 in shards at their chain offsets
+runs the multi-device layer: K1 in shards at their chain offsets
 against one launch, the eight-step dry run over NCCL at world size 1, and
-the data-parallel step against the single one.
+the data-parallel step against the single one, runs the dense flow zoo
+(phase 19: the circular autoregressive spline as Algorithm 1's big-move
+proposal through K1 and K2, normflows' RealNVP and neural-spline examples,
+HAIS), and runs the image, residual and Lipschitz flows (phase 20:
+normflows' Glow example at full width, L = 3, K = 16, hidden 256, 3 x 32
+x 32 at batch 128, trained and timed, with one step timed with TF32
+allowed; its residual-flow example with the Lipschitz update; the
+induced-norm layers against closed forms and dense operators; the
+convolutions' float32 first and second derivatives against float64).
 Each phase prints one line with its name,
 PASS and its numbers; any failure raises and the script exits non-zero.
 The line before the last is a JSON record of the kernels; the last line
@@ -3169,6 +3177,711 @@ def phase_zoo(card: str, rounds: dict = None, sample_blocks: int =
             "wall_s": wall}
 
 
+# Phase 20: the image, residual and Lipschitz flows.  (a) normflows'
+# examples/glow.ipynb at its widths: L = 3 levels of K = 16 GlowBlocks
+# (hidden 256, affine with scale) and a Squeeze, GlowBase bases, channel
+# merges, 3 x 32 x 32 images at batch 128, the port's Adam at 1e-4 and the
+# example's weight decay 1e-5 (the example's 1e-3 follows its data-
+# dependent ActNorm init, which neither package's MultiscaleFlow has, and
+# from the zero init a step at 1e-3 can throw the loss up many-fold);
+# (b) examples/residual.ipynb: K = 16 Residual(
+# LipschitzMLP((2, 128, 128, 2), coeff 0.9)) each followed by ActNorm(2)
+# over DiagGaussian(2), the series estimator, on TwoModes(2, 0.1) samples at
+# batch 512, torch's Adam at 1e-3 and weight decay 1e-5 on the loss with the
+# base term, each net's update_lipschitz after each step; (c) the
+# induced-norm layers against closed forms, and an InducedNormCNN residual
+# block on 12 x 16 x 16 images at batch 64
+GLOW = dict(levels=3, K=16, hidden=256, channels=3, size=32, batch=128)
+GLOW_STEPS = 12               # Adam steps; the loss over the last 3 < first 3
+GLOW_LR = 1e-4
+# log_prob of a batch in float32 against the same flow cast to float64, of
+# (1 + |log q|): float32 rounding over 3,072 dimensions and 48 blocks
+GLOW_F64_RTOL = 1e-4
+# x -> latents -> x in float32, and the two log-dets' sum of (1 + |ld|)
+GLOW_TRIP_ATOL = 1e-3
+GLOW_TRIP_LD_RTOL = 1e-4
+RESIDUAL = dict(K=16, hidden=128, coeff=0.9, batch=512)
+RESIDUAL_STEPS = 20
+RESIDUAL_LIP_ITERS = 50       # power-iteration steps a net after each step
+# a normalised weight's spectral norm over coeff: u is the converged power
+# vector only up to the last step's move of w
+RESIDUAL_NORM_RTOL = 1e-3
+RESIDUAL_TRIP_ATOL = 1e-4     # z -> fixed-point forward -> inverse, float32
+# (c): sigma at most the closed form, at 2->2 equal to it, within 1e-3
+# (tests/test_lipschitz.py's upper bound); sigma against the norm ratio its
+# v attains, float32 rounding; the conv's within 1e-3 of its dense
+# operator's norm
+LIP_CLOSED = 1e-3
+LIP_ATTAINED = 1e-4
+LIP_CONV_RTOL = 1e-3
+LIP_CNN = dict(channels=(12, 64, 64, 12), kernels=(3, 1, 3), size=16,
+               batch=64, coeff=0.9)
+LIP_CNN_SERIES_RTOL = 1e-4    # the estimator against the dense J's series
+# a Residual layer's series log-det (float32) against the same truncated
+# series, on the same probes, from its net's dense Jacobian in float64, of
+# (1 + |log-det|) per sample
+RESIDUAL_SERIES_RTOL = 1e-4
+# nets.conv2d in float32 against native F.conv2d in float64 (the output,
+# the first and the second derivatives of a loss), and the gradients of a
+# series log-det loss (through the conv's double backward) and of a
+# GlowBlock loss in float32 against the same in float64: max |diff| over
+# max |float64| per tensor (``grad_error``).  Float32 reads some 1e-6;
+# TF32 rounds the operands to 10 bits (2^-11 relative)
+CONV_GRAD_RTOL = 1e-4
+
+
+def glow_flow(g, levels, K, hidden, channels, size, **_):
+    """normflows' Glow: level i has K ``GlowBlock(3 * 2^(L + 1 - i))`` and
+    a ``Squeeze``, each level after the first joined by a channel
+    ``Merge``; bases (48, 4, 4), (12, 8, 8), (6, 16, 16) at L = 3."""
+    from flowstate_tpu_torch import flows as F
+
+    flows, bases, merges = [], [], []
+    for i in range(levels):
+        c = channels * 2 ** (levels + 1 - i)
+        flows.append([F.ParamLayer(F.GlowBlock(c, hidden), g, device=DEVICE)
+                      for _ in range(K)]
+                     + [F.ParamLayer(F.Squeeze(), device=DEVICE)])
+        if i > 0:
+            merges.append(F.Merge(mode="channel"))
+            bases.append(F.GlowBase((channels * 2 ** (levels - i),
+                                     size // 2 ** (levels - i),
+                                     size // 2 ** (levels - i))))
+        else:
+            bases.append(F.GlowBase((c, size // 2 ** levels,
+                                     size // 2 ** levels)))
+    return F.MultiscaleFlow(bases, flows, merges, device=DEVICE)
+
+
+# cuDNN's convolution kernels by name (forward, data and weight gradients)
+CONV_KERNEL_PARTS = ("conv", "fprop", "dgrad", "wgrad", "implicit_gemm",
+                     "winograd", "cudnn")
+
+
+def step_kernels(fn, label: str) -> dict:
+    """By the profiler, over one call of ``fn``: its device kernels and
+    device ms, the ms of the convolution kernels (``CONV_KERNEL_PARTS``),
+    how many kernels name TF32, and the six costliest kernels (printed).
+    None where the profiler records no device kernel."""
+    events = device_kernels(fn, 1)
+    if not events:
+        return {"kernels": None, "device_ms": None, "conv_ms": None,
+                "tf32_named": None}
+    by_name = {}
+    for e in events:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {label}, device ms by kernel: {t:.3f} {name[:90]}",
+              flush=True)
+    return {"kernels": float(len(events)),
+            "device_ms": sum(by_name.values()),
+            "conv_ms": sum(t for name, t in by_name.items()
+                           if any(k in name.lower()
+                                  for k in CONV_KERNEL_PARTS)),
+            "tf32_named": sum(1 for e in events if "tf32" in e.name.lower())}
+
+
+def glow_conv_flops(batch, levels, K, hidden, channels, size, **_):
+    """Multiply-adds x 2 of one forward's convolutions (each GlowBlock's
+    3 x 3, 1 x 1, 3 x 3 net), counted from the shapes."""
+    total = 0
+    for i in range(levels):
+        c = channels * 2 ** (levels + 1 - i)
+        hw = (size // 2 ** (levels - i)) ** 2
+        c1, c2 = (c + 1) // 2, c // 2
+        macs = hw * (c1 * hidden * 9 + hidden * hidden + hidden * 2 * c2 * 9)
+        total += K * macs
+    return 2 * batch * total
+
+
+def synthetic_images(g, n: int, size: int):
+    """8-bit images from a seed: a random 4 x 4 colour field upsampled,
+    with pixel noise, rounded to 0..255 (uint8)."""
+    import torch
+    import torch.nn.functional as tF
+
+    low = torch.rand((n, 3, 4, 4), generator=g, device=DEVICE)
+    img = tF.interpolate(low, size=size, mode="bilinear", align_corners=False)
+    img = img + 0.05 * torch.randn(img.shape, generator=g, device=DEVICE)
+    return torch.round(torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def dequantize(g, q):
+    import torch
+
+    return (q.float() + torch.rand(q.shape, generator=g, device=q.device)) \
+        / 256.0
+
+
+def phase_glow(card: str, widths: dict, steps: int) -> dict:
+    import contextlib
+    import copy
+
+    import torch
+
+    from flowstate_tpu_torch.flows import nets
+    from flowstate_tpu_torch.training import (
+        TrainConfig, make_optimizer, make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(81)
+    flow = glow_flow(g, **widths)
+    b = widths["batch"]
+    data = synthetic_images(g, b * steps, widths["size"])
+    cfg = TrainConfig(batch_size=b, lr=GLOW_LR, weight_decay=1e-5)
+    opt = make_optimizer(cfg)
+    step = make_train_step(flow, cfg, opt)
+    state = [opt.init(list(flow.parameters()))]
+    losses = []
+    for i in range(steps):
+        state[0], loss = step(state[0], dequantize(g, data[i * b:(i + 1) * b]))
+        losses.append(loss)
+    losses = torch.stack(losses).cpu()
+    first, last = float(losses[:3].mean()), float(losses[-3:].mean())
+    require(bool(torch.isfinite(losses).all()) and last < first,
+            f"glow: loss {first} -> {last} over {steps} steps")
+    x = dequantize(g, data[:b])
+
+    def train_step():
+        state[0], loss = step(state[0], x)
+        return loss
+
+    ms = median_ms(train_step, 5)
+    for _ in range(3):            # the profiler may record nothing (F6)
+        prof = step_kernels(train_step, "glow step")
+        if prof["kernels"] is not None:
+            break
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_step()
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # TF32 allowed (PyTorch's default for cuDNN): a reading, not an option
+    real, prev = nets._no_tf32, torch.backends.cudnn.allow_tf32
+    nets._no_tf32 = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_ms = median_ms(train_step, 3)
+        tf32 = step_kernels(train_step, "glow step with TF32")
+    finally:
+        nets._no_tf32, torch.backends.cudnn.allow_tf32 = real, prev
+    require(prof["tf32_named"] == 0,
+            f"glow: {prof['tf32_named']} kernels named TF32 in the step "
+            f"(None: three profiles recorded no kernel)")
+    flops = 3 * glow_conv_flops(**widths)   # forward, input and weight grads
+
+    with torch.no_grad():
+        lp = flow.log_prob(x)
+        flow64 = copy.deepcopy(flow).double()
+        lp64 = flow64.log_prob(x.double())
+        del flow64
+        f64_err = float(((lp.double() - lp64).abs() / (1 + lp64.abs())).max())
+        z_list, ld = flow.inverse_and_log_det(x)
+        x_back, ld_f = flow.forward_and_log_det(z_list)
+        trip = float((x_back - x).abs().max())
+        trip_ld = float(((ld + ld_f).abs() / (1 + ld.abs())).max())
+        s = flow.sample(b, g)
+    require(bool(torch.isfinite(lp).all()) and f64_err <= GLOW_F64_RTOL,
+            f"glow: log_prob vs float64 {f64_err} of (1 + |log q|)")
+    require(trip <= GLOW_TRIP_ATOL and trip_ld <= GLOW_TRIP_LD_RTOL,
+            f"glow: round trip {trip}, log-dets {trip_ld}")
+    require(tuple(s.shape) == (b, 3, widths["size"], widths["size"])
+            and bool(torch.isfinite(s).all()), "glow: samples")
+    dev, conv_dev = prof["device_ms"], prof["conv_ms"]
+
+    def fmt(v, spec=".3f"):
+        return "not_measured" if v is None else format(v, spec)
+
+    out = {"ms": ms, **prof, "peak_gib": peak_gib, "tf32_ms": tf32_ms,
+           "tf32": tf32, "conv_flop": flops, "loss_first": first,
+           "loss_last": last}
+    phase("20a glow", card=f"'{card}'", levels=widths["levels"],
+          K=widths["K"], hidden=widths["hidden"], batch=b,
+          image=f"3x{widths['size']}x{widths['size']}",
+          params=sum(p.numel() for p in flow.parameters()), steps=steps,
+          loss_first3=f"{first:.2f}", loss_last3=f"{last:.2f}",
+          step_ms=f"{ms:.3f}", step_kernels=prof["kernels"],
+          step_device_ms=fmt(dev), conv_device_ms=fmt(conv_dev),
+          peak_gib=f"{peak_gib:.3f}", conv_gflop=f"{flops / 1e9:.1f}",
+          conv_tflops_over_device=fmt(dev and flops / dev / 1e9, ".2f"),
+          conv_tflops_over_conv_kernels=fmt(conv_dev and
+                                            flops / conv_dev / 1e9, ".2f"),
+          tf32_named_kernels=prof["tf32_named"],
+          tf32_step_ms=f"{tf32_ms:.3f}",
+          tf32_step_device_ms=fmt(tf32["device_ms"]),
+          tf32_step_conv_device_ms=fmt(tf32["conv_ms"]),
+          tf32_step_tf32_named_kernels=tf32["tf32_named"],
+          log_q_vs_float64=f"{f64_err:.3g}", round_trip_err=f"{trip:.3g}",
+          round_trip_log_det=f"{trip_ld:.3g}", samples=len(s),
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+    del flow, state
+    torch.cuda.empty_cache()
+    return out
+
+
+class _TwoModes:
+    """normflows' ``TwoModes(2, 0.1)`` target with the proposal box that
+    ``flows.rejection_sample`` needs."""
+
+    n_dims = 2
+
+    def __init__(self):
+        from flowstate_tpu_torch import flows as F
+
+        self.target = F.TwoModes(2.0, 0.1)
+
+    def log_prob(self, z):
+        return self.target.log_prob(z)
+
+
+def update_lipschitz_(flow, n_iterations: int) -> None:
+    """Each ``Residual`` layer's net ``update_lipschitz``, written into its
+    parameters (normflows' ``utils.update_lipschitz(model, n)``)."""
+    import torch
+
+    from flowstate_tpu_torch.flows import Residual, tree_map
+
+    for layer in flow.layers:
+        if isinstance(layer.layer, Residual):
+            tree = layer.params.tree()
+            new = layer.layer.net.update_lipschitz(tree["net"], n_iterations)
+            with torch.no_grad():
+                tree_map(lambda dst, src: dst.copy_(src), tree["net"], new)
+
+
+def plain_series(jac, e, n: int):
+    """sum_{k <= n} (-1)^(k+1) / k e . (J^T)^k e per sample, J (B, D, D)
+    with J[b, i, j] = d g_i / d x_j, e (B, D): the truncated series that
+    the ``series`` estimator computes, one vector-Jacobian product a
+    term."""
+    import torch
+
+    v, total = e, torch.zeros_like(e[:, 0])
+    for k in range(1, n + 1):
+        v = torch.einsum("bij,bi->bj", jac, v)
+        total = total + (-1.0) ** (k + 1) / k * (v * e).sum(dim=1)
+    return total
+
+
+def residual_log_dets(flow, x, g):
+    """Inverse through ``flow``.  At each ``Residual`` layer: its series
+    log-det on probes drawn from ``g``, held per sample against
+    ``plain_series`` of its net's dense Jacobian on the same probes, taken
+    on float64 copies of the tree and the input (the largest error of
+    (1 + |log-det|) is returned), and the exact estimator's log-det at
+    the same input.  Also the two log q, by the series and by the exact
+    log-dets."""
+    import dataclasses
+
+    import torch
+
+    from flowstate_tpu_torch.flows import Residual, tree_map
+    from flowstate_tpu_torch.flows.residual import batch_jacobian
+
+    series = exact = torch.zeros_like(x[:, 0])
+    dense_err = 0.0
+    for layer in reversed(flow.layers):
+        if isinstance(layer.layer, Residual):
+            res, tree = layer.layer, layer.params.tree()
+            exact_layer = dataclasses.replace(res, estimator="exact",
+                                              dim=x.shape[1])
+            exact = exact + exact_layer._logdetgrad(tree, x)
+            noise = res.draw(x, g)
+            net64 = tree_map(lambda p: p.detach().double(), tree["net"])
+            jac = batch_jacobian(lambda v: res.net.apply(net64, v),
+                                 x.double())
+            want = torch.stack([plain_series(jac, e.double(),
+                                             res.n_power_series)
+                                for e in noise[0]]).mean(dim=0)
+            x, ld = layer.inverse(x, noise=noise)
+            dense_err = max(dense_err, float(
+                ((ld.double() - want).abs() / (1 + want.abs())).max()))
+            series = series + ld
+        else:
+            x, ld = layer.inverse(x)
+            series, exact = series + ld, exact + ld
+    base = flow.base.log_prob(x)
+    return series + base, exact + base, dense_err
+
+
+def phase_residual_flow(card: str, widths: dict, steps: int) -> dict:
+    import torch
+
+    from flowstate_tpu_torch import flows as F
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(82)
+    K, h, coeff = widths["K"], widths["hidden"], widths["coeff"]
+    layers = []
+    for _ in range(K):
+        net = F.LipschitzMLP((2, h, h, 2), coeff=coeff)
+        layers += [F.ParamLayer(F.Residual(net, estimator="series"), g,
+                                device=DEVICE),
+                   F.ParamLayer(F.ActNorm(2), g, device=DEVICE)]
+    flow = F.NormalizingFlow(F.DiagGaussian(2, trainable=False), layers,
+                             device=DEVICE)
+    target = _TwoModes()
+    opt = torch.optim.Adam(flow.parameters(), lr=1e-3, weight_decay=1e-5)
+    b = widths["batch"]
+    losses = []
+
+    # TwoModes accepts a few percent of the proposal box, so 64 x 512
+    # proposals leave several times the 512 taken (fewer would repeat some)
+    def train_step():
+        x = F.rejection_sample(target, b, g, DEVICE, oversample=64)
+        loss = flow.forward_kld(x, include_base=True)
+        if torch.isfinite(loss):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+        losses.append(loss.detach())
+
+    def update():
+        update_lipschitz_(flow, RESIDUAL_LIP_ITERS)
+
+    for _ in range(steps):
+        train_step()
+        update()
+    ms = median_ms(train_step, 3)
+    prof = per_call(train_step, 1)
+    update_ms = median_ms(update, 3)
+    update_prof = per_call(update, 1)
+    losses = torch.stack(losses[:steps]).cpu()
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    require(bool(torch.isfinite(losses).all()) and last < first,
+            f"residual flow: loss {first} -> {last} over {steps} steps")
+    norm_ratio = 0.0
+    for layer in flow.layers:
+        if isinstance(layer.layer, F.Residual):
+            for p in layer.params.tree()["net"]:
+                w = layer.layer.net._normalized_w(p).detach()
+                norm_ratio = max(norm_ratio, float(
+                    torch.linalg.matrix_norm(w, ord=2)) / coeff)
+    require(norm_ratio <= 1.0 + RESIDUAL_NORM_RTOL,
+            f"residual flow: a normalised weight's norm {norm_ratio} x coeff")
+    x = F.rejection_sample(target, b, g, DEVICE, oversample=64)
+    with torch.no_grad():
+        lq_series, lq_exact, dense_err = residual_log_dets(flow, x, g)
+    require(dense_err <= RESIDUAL_SERIES_RTOL,
+            f"residual flow: series log-dets against the dense Jacobian's "
+            f"series {dense_err}")
+    gap = (lq_series - lq_exact).double()
+    mean_gap, se = float(gap.mean()), float(gap.std() / math.sqrt(b))
+    lip = coeff ** 3                 # three normalised linears, LipSwish 1
+    n = flow.layers[0].layer.n_power_series
+    trunc = K * 2 * sum(lip ** k / k for k in range(n + 1, 200))
+    require(bool(torch.isfinite(gap).all())
+            and abs(mean_gap) <= 3 * se + trunc,
+            f"residual flow: series - exact log q {mean_gap} +- {se}, "
+            f"truncation bound {trunc}")
+    with torch.no_grad():
+        z = flow.base.sample(4096, g, DEVICE)
+        xs = flow.forward(z)
+        trip = float((flow.inverse(xs) - z).abs().max())
+    require(bool(torch.isfinite(xs).all()) and trip <= RESIDUAL_TRIP_ATOL,
+            f"residual flow: fixed-point round trip {trip}")
+    out = {"ms": ms, **prof, "update_ms": update_ms,
+           "update_kernels": update_prof["kernels"], "loss_first": first,
+           "loss_last": last, "gap": mean_gap, "dense_err": dense_err,
+           "trip": trip}
+    phase("20b residual flow", card=f"'{card}'", K=K, hidden=h, batch=b,
+          steps=steps, loss_first5=f"{first:.4f}", loss_last5=f"{last:.4f}",
+          step_ms=f"{ms:.3f}", step_kernels=prof["kernels"],
+          step_device_ms=("not_measured" if prof["device_ms"] is None
+                          else f"{prof['device_ms']:.3f}"),
+          update_lipschitz_ms=f"{update_ms:.3f}",
+          update_lipschitz_kernels=update_prof["kernels"],
+          max_norm_over_coeff=f"{norm_ratio:.6f}",
+          series_minus_exact_mean=f"{mean_gap:.4f}",
+          series_minus_exact_se=f"{se:.4f}",
+          series_minus_exact_max=f"{float(gap.abs().max()):.4f}",
+          truncation_bound=f"{trunc:.3f}",
+          series_vs_dense=f"{dense_err:.3g}", round_trip_err=f"{trip:.3g}",
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+    del flow
+    return out
+
+
+def dense_rows(fn, x):
+    """The Jacobian of ``fn`` at one input ``x`` (1, ...), (n_out, n_in),
+    row k by the gradient of output k, all rows in one batched pass."""
+    import torch
+
+    n = x[0].numel()
+    xs = x.expand(n, *x.shape[1:]).clone().requires_grad_()
+    out = fn(xs)
+    eye = torch.eye(n, dtype=x.dtype, device=x.device).reshape(out.shape)
+    (rows,) = torch.autograd.grad(out, xs, eye)
+    return rows.reshape(n, n)
+
+
+def induced_norms(g, out_f: int, in_f: int) -> dict:
+    """``InducedNormLinear`` (its init, then 300 steps) for 2->2, 1->1,
+    inf->inf and 1->inf: sigma = u . W v over the closed form (the top
+    singular value, the largest column abs-sum, the largest row abs-sum,
+    the largest |w_ij|), and sigma against ||W v||_q / ||v||_p, the norm
+    ratio the final ``v`` attains."""
+    import torch
+
+    from flowstate_tpu_torch import flows as F
+
+    inf = math.inf
+    out = {}
+    for dom, cod in ((2, 2), (1, 1), (inf, inf), (1, inf)):
+        layer = F.InducedNormLinear(in_f, out_f, domain=dom, codomain=cod,
+                                    coeff=0.9)
+        p = layer.update_lipschitz(layer.init_params(g, device=DEVICE), 300)
+        w, v = p["w"].double(), p["v"].double()
+        closed = {(2, 2): lambda: torch.linalg.matrix_norm(w, ord=2),
+                  (1, 1): lambda: w.abs().sum(0).max(),
+                  (inf, inf): lambda: w.abs().sum(1).max(),
+                  (1, inf): lambda: w.abs().max()}[(dom, cod)]()
+        attained = (torch.linalg.vector_norm(w @ v, ord=cod)
+                    / torch.linalg.vector_norm(v, ord=dom))
+        sigma = abs(float(torch.dot(p["u"], p["w"] @ p["v"])))
+        out[f"{dom}->{cod}"] = (sigma / float(closed),
+                                abs(sigma / float(attained) - 1.0))
+    return out
+
+
+def float_leaves(tree) -> list:
+    from flowstate_tpu_torch.flows import tree_map
+
+    out = []
+    tree_map(lambda p: out.append(p) if p.is_floating_point() else None,
+             tree)
+    return out
+
+
+def grad_error(loss, tree, x) -> float:
+    """The gradient of ``loss(tree, x)`` with respect to the float leaves
+    of ``tree`` in float32, against the same on float64 copies of
+    ``tree`` and ``x``: the largest over the leaves of max |diff| over
+    max |float64|, that scale held at least 1e-3 of the whole gradient's
+    largest entry (a converged power vector ``u`` has a gradient some
+    1e-5 of the weights', nearly cancelled, so float32 loses its digits;
+    a leaf the loss does not reach reads its bare difference)."""
+    import torch
+
+    from flowstate_tpu_torch.flows import tree_map
+
+    grads = []
+    for dtype in (torch.float32, torch.float64):
+        t = tree_map(lambda p: p.detach().to(dtype).requires_grad_()
+                     if p.is_floating_point() else p, tree)
+        grads.append(torch.autograd.grad(
+            loss(t, x.detach().to(dtype)), float_leaves(t),
+            allow_unused=True, materialize_grads=True))
+    floor = 1e-3 * max(float(b.abs().max()) for b in grads[1])
+    err = 0.0
+    for a, b in zip(*grads):
+        scale = max(float(b.abs().max()), floor)
+        diff = float((a.double() - b).abs().max())
+        err = max(err, diff / scale if scale > 0 else diff)
+    return err
+
+
+def conv_derivative_error(g, batch=8, c_in=12, c_out=64, size=16) -> float:
+    """``nets.conv2d`` in float32 against native ``F.conv2d`` in float64
+    on the same inputs (3 x 3, padding 1, stride 1 and 2): the output y,
+    the gradients of L = sum(r y^2) with respect to x and w (the
+    backward), and those of s = sum(a dL/dx) + sum(b dL/dw) (the double
+    backward), each as max |diff| over max |float64|; the largest."""
+    import torch
+    import torch.nn.functional as tF
+
+    from flowstate_tpu_torch.flows.nets import conv2d
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+
+    x, w = rand(batch, c_in, size, size), rand(c_out, c_in, 3, 3) / 10.0
+    a, b = rand(*x.shape), rand(*w.shape)
+    err = 0.0
+    for stride in (1, 2):
+        r = rand(batch, c_out, (size - 1) // stride + 1,
+                 (size - 1) // stride + 1)
+        got = []
+        for conv, dtype in ((conv2d, torch.float32),
+                            (tF.conv2d, torch.float64)):
+            xd = x.to(dtype).requires_grad_()
+            wd = w.to(dtype).requires_grad_()
+            y = conv(xd, wd, stride=stride, padding=1)
+            gx, gw = torch.autograd.grad((r.to(dtype) * y * y).sum(),
+                                         (xd, wd), create_graph=True)
+            hx, hw = torch.autograd.grad(
+                (a.to(dtype) * gx).sum() + (b.to(dtype) * gw).sum(),
+                (xd, wd))
+            got.append((y, gx, gw, hx, hw))
+        for u, v in zip(*got):
+            u, v = u.detach().double(), v.detach()
+            err = max(err, float((u - v).abs().max() / v.abs().max()))
+    return err
+
+
+def lipschitz_grad_errors(g, net, block, params, x, noise) -> dict:
+    """Float32 derivatives against float64 (``CONV_GRAD_RTOL``): the conv
+    alone against native ``F.conv2d``; the gradient of the series loss
+    -mean(log-det) + mean(y^2) / 2 of the ``InducedNormCNN`` block and of
+    a ``LipschitzCNN`` block of the same widths (the power series'
+    vector-Jacobian products differentiated again: the conv's double
+    backward); the gradient of a ``GlowBlock(12, 256)`` loss on 16 x 16
+    images, its zero-initialised last conv set random so every conv has a
+    gradient."""
+    import dataclasses
+
+    import torch
+
+    from flowstate_tpu_torch import flows as F
+
+    def series_loss(blk):
+        def loss(tree, xd):
+            nd = (noise[0].to(xd.dtype), noise[1])
+            y, ld = blk.inverse({"net": tree}, xd, noise=nd)
+            return -ld.mean() + 0.5 * (y * y).mean()
+        return loss
+
+    c, s = x.shape[1], x.shape[-1]
+    lcnn = F.LipschitzCNN(net.channels, net.kernel_size, (s, s), coeff=0.9)
+    lparams = lcnn.update_lipschitz(lcnn.init_params(g, device=DEVICE), 50)
+    glow = F.GlowBlock(c, 256)
+    gparams = glow.init_params(g, device=DEVICE)
+    last = gparams["net"][-1]["w"]
+    gparams["net"][-1]["w"] = 0.01 * torch.randn(last.shape, generator=g,
+                                                 device=DEVICE)
+    xg = torch.randn((16, c, s, s), generator=g, device=DEVICE)
+
+    def glow_loss(tree, xd):
+        z, ld = glow.inverse(tree, xd)
+        return -ld.mean() + 0.5 * (z * z).mean()
+
+    return {"conv": conv_derivative_error(g),
+            "induced_cnn_series": grad_error(series_loss(block),
+                                             params["net"], x),
+            "lipschitz_cnn_series": grad_error(
+                series_loss(dataclasses.replace(block, net=lcnn)),
+                lparams, x),
+            "glow_block": grad_error(glow_loss, gparams, xg)}
+
+
+def phase_lipschitz(card: str, linear=((12, 16), (96, 128)),
+                    conv_field=(4, 6), cnn: dict = None) -> dict:
+    """``InducedNormLinear`` at each (out, in) of ``linear``: sigma a norm
+    ratio that its ``v`` attains (within ``LIP_ATTAINED``), at most the
+    closed form, and at 2->2 the closed form (within ``LIP_CLOSED``); off
+    2->2 the iteration is a local ascent whose 11 starts may stop below
+    the largest column or row, so the ratio there is printed.  The 3 x 3
+    conv's sigma against its dense operator; an ``InducedNormCNN``
+    residual block; float32 derivatives against float64
+    (``lipschitz_grad_errors``)."""
+    import torch
+
+    from flowstate_tpu_torch import flows as F
+    from flowstate_tpu_torch.flows import tree_map
+
+    t0 = time.perf_counter()
+    cnn = cnn or LIP_CNN
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(83)
+    norms = {}
+    for out_f, in_f in linear:
+        res = induced_norms(g, out_f, in_f)
+        require(all(r <= 1.0 + LIP_CLOSED and e <= LIP_ATTAINED
+                    for r, e in res.values())
+                and res["2->2"][0] >= 1.0 - LIP_CLOSED,
+                f"lipschitz: sigma over the closed form, and against the "
+                f"attained ratio, at {out_f}x{in_f}: {res}")
+        norms[f"{out_f}x{in_f}"] = res
+    c, hw = conv_field
+    conv = F.InducedNormConv2d(c, c, 3, spatial_dims=(hw, hw), coeff=0.9)
+    p = conv.update_lipschitz(conv.init_params(g, device=DEVICE), 1000)
+    dense = dense_rows(lambda v: conv._conv(p["w"].double(), v),
+                       torch.zeros((1, c, hw, hw), dtype=torch.float64,
+                                   device=DEVICE))
+    conv_exact = float(torch.linalg.matrix_norm(dense, ord=2))
+    conv_sigma = float(torch.dot(p["u"], conv._wv(p["w"], p["v"])))
+    conv_err = abs(conv_sigma / conv_exact - 1.0)
+    require(conv_err <= LIP_CONV_RTOL,
+            f"lipschitz: conv sigma {conv_sigma}, dense norm {conv_exact}")
+
+    # an InducedNormCNN residual block, its last conv back at full scale
+    s = cnn["size"]
+    net = F.InducedNormCNN(cnn["channels"], cnn["kernels"], (s, s),
+                           coeff=cnn["coeff"])
+    block = F.Residual(net, estimator="series")
+    params = net.init_params(g, device=DEVICE)
+    params[-1]["w"] = params[-1]["w"] * 1000.0
+    params = {"net": net.update_lipschitz(params, 50)}
+    x = torch.randn((cnn["batch"], cnn["channels"][0], s, s), generator=g,
+                    device=DEVICE)
+    noise = block.draw(x, g)
+    with torch.no_grad():
+        y, ld = block.inverse(params, x, noise=noise)
+        x_back, ld_f = block.forward(params, y, noise=noise)
+    trip = float((x_back - x).abs().max())
+    require(trip <= RESIDUAL_TRIP_ATOL and bool(torch.isfinite(ld).all()),
+            f"lipschitz: the CNN block's round trip {trip}")
+    # the series on the first two images against the same series from the
+    # dense Jacobian (e J^k e with JAX's vjp order), and the exact log-det
+    series_err, gaps = 0.0, []
+    net64 = tree_map(lambda p: p.detach().double(), params["net"])
+    for i in range(2):
+        jac = dense_rows(lambda v: net.apply(net64, v), x[i:i + 1].double())
+        e = noise[0][0, i].reshape(1, -1).double()
+        want = float(plain_series(jac[None], e, block.n_power_series)[0])
+        series_err = max(series_err, abs(float(ld[i]) - want)
+                         / (1.0 + abs(want)))
+        eye = torch.eye(e.shape[1], dtype=torch.float64, device=DEVICE)
+        gaps.append(float(ld[i]) - float(torch.linalg.slogdet(eye + jac)[1]))
+    require(series_err <= LIP_CNN_SERIES_RTOL,
+            f"lipschitz: the block's series vs the dense J's {series_err}")
+    grads = lipschitz_grad_errors(g, net, block, params, x[:8],
+                                  (noise[0][:, :8], noise[1]))
+    require(all(v <= CONV_GRAD_RTOL for v in grads.values()),
+            f"lipschitz: float32 derivatives against float64 {grads}")
+    phase("20c lipschitz", card=f"'{card}'",
+          **{f"sigma_over_closed_{size}_{k}": f"{r:.6f}"
+             for size, res in norms.items() for k, (r, _) in res.items()},
+          conv_field=f"{c}x{hw}x{hw}", conv_sigma_err=f"{conv_err:.3g}",
+          cnn_block="x".join(map(str, cnn["channels"])),
+          cnn_images=f"{cnn['batch']}x{cnn['channels'][0]}x{s}x{s}",
+          round_trip_err=f"{trip:.3g}", series_vs_dense=f"{series_err:.3g}",
+          series_minus_exact=",".join(f"{v:.4f}" for v in gaps),
+          **{f"grad_vs_float64_{k}": f"{v:.3g}" for k, v in grads.items()},
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+    return {"norms": norms, "conv_err": conv_err, "trip": trip,
+            "series_err": series_err, "gaps": gaps, "grads": grads}
+
+
+def phase_image_residual(card: str, glow: dict = None,
+                         glow_steps: int = GLOW_STEPS,
+                         residual: dict = None,
+                         residual_steps: int = RESIDUAL_STEPS,
+                         lipschitz: dict = None) -> dict:
+    """The image, residual and Lipschitz flows on the card: (a) Glow at
+    normflows' widths, trained, timed (ms, kernels, device ms, peak
+    memory, the convolutions' FLOP rate; one step with TF32 allowed) and
+    checked (float64 log q, the round trip, samples); (b) the residual
+    flow example trained with the Lipschitz update, its normalised
+    weights, the series log-det against the exact one, the fixed-point
+    samples; (c) the induced-norm layers and the convolutions' float32
+    derivatives against float64.  No kernel of the port runs
+    here: these flows are plain PyTorch (the JAX package reaches no
+    Pallas kernel for them)."""
+    t0 = time.perf_counter()
+    out = {"glow": phase_glow(card, glow or GLOW, glow_steps),
+           "residual": phase_residual_flow(card, residual or RESIDUAL,
+                                           residual_steps),
+           "lipschitz": phase_lipschitz(card, **(lipschitz or {}))}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 20 took {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def layer_slices(stacked: dict, k: int) -> list:
     """The K per-layer trees of a stacked tree (leaves (K, ...)), as an
     unstacked flow holds them."""
@@ -3213,6 +3926,7 @@ def main() -> int:
     nets = phase_nets(card)
     multi = phase_multi_device(card)
     zoo = phase_zoo(card)
+    phase_image_residual(card)
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{

@@ -1,10 +1,10 @@
 """The normalizing-flow library: the circular spline flow of the hybrid
 runs (splines' nets, couplings, base, model, the conditional flow of the
-blocked moves) and the dense flow zoo (affine, autoregressive, mixing,
+blocked moves), the dense flow zoo (affine, autoregressive, mixing,
 elementary, normalization, periodic and reshape layers, the other bases
-and models, the stochastic layers, HAIS, the toy targets and the VAE).
-The image, residual and Lipschitz layers, ``GlowBase`` and
-``MultiscaleFlow`` are not ported yet (ROADMAP queue 1)."""
+and models, the stochastic layers, HAIS, the toy targets and the VAE),
+and the image, residual and Lipschitz layers with ``GlowBase`` and
+``MultiscaleFlow``: every name of the JAX package's ``flows``."""
 
 from flowstate_tpu_torch.flows.affine import (
     AffineConstFlow, AffineCoupling, AffineCouplingBlock, CCAffineConst,
@@ -29,14 +29,22 @@ from flowstate_tpu_torch.flows.coupling import (
 )
 from flowstate_tpu_torch.flows.distributions import (
     AffineGaussian, ClassCondDiagGaussian, DiagGaussian, GaussianMixture,
-    GaussianPCA, UniformBase, UniformGaussian, UniformParticle,
+    GaussianPCA, GlowBase, UniformBase, UniformGaussian, UniformParticle,
 )
 from flowstate_tpu_torch.flows.elementary import Planar, Radial
+from flowstate_tpu_torch.flows.image import (
+    ActNormImage, ConvNet2d, ConvResidualNet, GlowBlock,
+)
+from flowstate_tpu_torch.flows.lipschitz import (
+    InducedNormCNN, InducedNormConv2d, InducedNormLinear, InducedNormMLP,
+    normalize_u, normalize_v, projmax, vector_norm,
+)
 from flowstate_tpu_torch.flows.mixing import (
     Invertible1x1Conv, InvertibleAffine, LULinearPermute, Permute,
 )
 from flowstate_tpu_torch.flows.models import (
     ClassCondFlow, ConditionalNormalizingFlow, ContextAffineCoupling,
+    MultiscaleFlow,
 )
 from flowstate_tpu_torch.flows.nets import (
     MLP, ClampExp, ConstScaleLayer, PeriodicFeaturesCat,
@@ -46,6 +54,10 @@ from flowstate_tpu_torch.flows.nets import (
 from flowstate_tpu_torch.flows.normalization import ActNorm, BatchNorm
 from flowstate_tpu_torch.flows.periodic import PeriodicShift, PeriodicWrap
 from flowstate_tpu_torch.flows.reshape import Merge, Split, Squeeze
+from flowstate_tpu_torch.flows.residual import (
+    LipschitzCNN, LipschitzMLP, Residual, asym_squash, batch_jacobian,
+    batch_trace, geometric_sample, leaky_elu, lipswish, poisson_sample,
+)
 from flowstate_tpu_torch.flows.sampling import HAIS
 from flowstate_tpu_torch.flows.stochastic import (
     DiagGaussianProposal, HamiltonianMonteCarlo, MetropolisHastings,
@@ -70,7 +82,15 @@ __all__ = [
     "NormalizingFlow", "build_circular_flow",
     "build_conditional_circular_flow", "NormalizingFlowVAE",
     "ScannedLayers", "generate_samples", "ConditionalNormalizingFlow",
-    "ContextAffineCoupling", "ClassCondFlow",
+    "ContextAffineCoupling", "ClassCondFlow", "MultiscaleFlow",
+    # residual + image
+    "Residual", "LipschitzMLP", "LipschitzCNN", "lipswish",
+    "InducedNormLinear", "InducedNormConv2d", "InducedNormMLP",
+    "InducedNormCNN", "normalize_u", "normalize_v", "projmax",
+    "vector_norm",
+    "geometric_sample", "poisson_sample", "batch_jacobian", "batch_trace",
+    "leaky_elu", "asym_squash",
+    "GlowBlock", "ConvNet2d", "ConvResidualNet", "ActNormImage",
     # the port's parameter containers and the carry-over from JAX
     "ParamLayer", "ParamTree", "tree_map", "params_from_jax",
     "params_to_jax",
@@ -96,8 +116,8 @@ __all__ = [
     "HAIS",
     # bases
     "UniformParticle", "UniformBase", "DiagGaussian", "UniformGaussian",
-    "GaussianMixture", "ClassCondDiagGaussian", "AffineGaussian",
-    "GaussianPCA",
+    "GaussianMixture", "ClassCondDiagGaussian", "GlowBase",
+    "AffineGaussian", "GaussianPCA",
     # nets
     "ResidualNet", "MLP", "TransformerNet", "TorusEGNN",
     "PeriodicFeaturesElementwise", "PeriodicFeaturesCat",

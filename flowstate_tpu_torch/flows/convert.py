@@ -27,7 +27,10 @@ those trees (``{}`` for a layer without parameters, ``None`` for a
 missing net).  A module with one tree of its own, ``ParamLayer`` (a
 single layer, or a trainable base's ``{"loc", "log_scale"}``) or
 ``NormalizingFlowVAE`` (``{"encoder", "flows", "decoder"}``), carries
-that tree alone.
+that tree alone.  A ``MultiscaleFlow`` is JAX's ``{"flows": (one tuple
+of layer trees a level), "transform": the transform's tree or None}``.
+Trees may hold 0-d leaves (``InducedNormMLP``'s ``beta``, learnable
+orders) and list-rooted nets (a ``Residual``'s ``{"net": [...]}``).
 """
 
 from __future__ import annotations
@@ -45,17 +48,30 @@ def _has_layers(module: nn.Module) -> bool:
     return hasattr(module, "layers")
 
 
+def _is_multiscale(module: nn.Module) -> bool:
+    return hasattr(module, "merges")
+
+
 def _layer_trees(flow: nn.Module):
     return [layer.params.tree() for layer in flow.layers]
+
+
+def _multiscale_tree(flow: nn.Module):
+    return {"flows": tuple(tuple(layer.params.tree() for layer in level)
+                           for level in flow.flows),
+            "transform": (None if flow.transform is None
+                          else flow.transform.params.tree())}
 
 
 def params_from_jax(tree: Sequence, flow: nn.Module) -> nn.Module:
     """Copy the JAX parameter tuple ``tree`` (numpy leaves) into ``flow``
     (a ``NormalizingFlow``, ``ConditionalNormalizingFlow`` or
-    ``ClassCondFlow``), or the one tree of a ``ParamLayer`` or
-    ``NormalizingFlowVAE``, in the module's dtype and on its device;
-    returns ``flow``."""
-    if _has_layers(flow):
+    ``ClassCondFlow``), or the one tree of a ``ParamLayer``,
+    ``NormalizingFlowVAE`` or ``MultiscaleFlow``, in the module's dtype
+    and on its device; returns ``flow``."""
+    if _is_multiscale(flow):
+        tree, ours = (tree,), (_multiscale_tree(flow),)
+    elif _has_layers(flow):
         if isinstance(tree, dict):
             tree = (tree,)
         ours = _layer_trees(flow)
@@ -104,11 +120,13 @@ def _check_structure(dst, src, path: str = "") -> None:
 
 def params_to_jax(flow: nn.Module):
     """The flow's parameters in the JAX layout, as numpy arrays: a tuple
-    of layer trees, or a ``ParamLayer``'s or ``NormalizingFlowVAE``'s one
-    tree."""
+    of layer trees, or a ``ParamLayer``'s, ``NormalizingFlowVAE``'s or
+    ``MultiscaleFlow``'s one tree."""
     def to_numpy(tree):
         return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
+    if _is_multiscale(flow):
+        return to_numpy(_multiscale_tree(flow))
     if not _has_layers(flow):
         return to_numpy(flow.params.tree())
     return tuple(to_numpy(tree) for tree in _layer_trees(flow))

@@ -11,7 +11,8 @@ Port of ``flowstate_tpu/flows/distributions.py``:
   :130-157: ``sample`` draws uniform noise on both groups and
   ``log_prob`` returns the uniform part only);
 * ``GaussianMixture`` (:162), ``ClassCondDiagGaussian`` (:195),
-  ``AffineGaussian`` (:276) and ``GaussianPCA`` (:299).
+  ``GlowBase`` (:232, per channel on (C, H, W)), ``AffineGaussian``
+  (:276) and ``GaussianPCA`` (:299).
 
 Bases are configurations without tensors.  ``sample(num_samples,
 generator, device)`` draws float32 from an explicit generator (the
@@ -259,6 +260,54 @@ class ClassCondDiagGaussian:
                 - torch.sum(log_scale
                             + 0.5 * ((z - loc) / torch.exp(log_scale)) ** 2,
                             dim=-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class GlowBase:
+    """Glow's base: a Gaussian on (C, H, W) with a ``loc`` and a
+    ``log_scale`` per channel, the stored values times
+    ``logscale_factor``; ``temperature`` scales the deviation."""
+
+    shape: Tuple[int, ...]   # (C, H, W)
+    logscale_factor: float = 3.0
+
+    def init_params(self, generator: Optional[torch.Generator] = None,
+                    dtype=torch.float32, device="cuda"):
+        c = self.shape[0]
+        return {"loc": torch.zeros((c,), dtype=dtype, device=device),
+                "log_scale_raw": torch.zeros((c,), dtype=dtype,
+                                             device=device)}
+
+    def _moments(self, params, temperature, dtype, device):
+        if params is None:
+            params = self.init_params(dtype=dtype, device=device)
+        bshape = (1, self.shape[0]) + (1,) * (len(self.shape) - 1)
+        loc = (params["loc"] * self.logscale_factor).reshape(bshape)
+        log_scale = (params["log_scale_raw"] * self.logscale_factor
+                     ).reshape(bshape)
+        if temperature is not None:
+            log_scale = log_scale + math.log(temperature)
+        return loc, log_scale
+
+    def sample(self, num_samples: int,
+               generator: Optional[torch.Generator] = None, device="cuda",
+               params=None, temperature: Optional[float] = None
+               ) -> torch.Tensor:
+        loc, log_scale = self._moments(params, temperature, torch.float32,
+                                       device)
+        eps = _normal((num_samples, *self.shape), generator, device)
+        return loc + torch.exp(log_scale) * eps
+
+    def log_prob(self, z: torch.Tensor, params=None,
+                 temperature: Optional[float] = None) -> torch.Tensor:
+        loc, log_scale = self._moments(params, temperature, z.dtype,
+                                       z.device)
+        num_pix = float(np.prod(self.shape[1:]))
+        axes = tuple(range(1, len(self.shape) + 1))
+        return (-0.5 * float(np.prod(self.shape)) * LOG_2PI
+                - num_pix * torch.sum(log_scale)
+                - 0.5 * torch.sum(((z - loc) / torch.exp(log_scale)) ** 2,
+                                  dim=axes))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,10 +9,12 @@ Port of ``flowstate_tpu/flows/models.py``:
   (``mcmc/blocked.py``): a context-free ``UniformParticle`` base over the
   block's coordinates and layers whose ``forward`` / ``inverse`` take
   ``context`` (``flows/core.py::build_conditional_circular_flow``);
-* ``ClassCondFlow`` (:184-211): the class label reaches the base only.
-
-``MultiscaleFlow`` (:213) waits with the image layers (ROADMAP queue 1
-item 14c).
+* ``ClassCondFlow`` (:184-211): the class label reaches the base only;
+* ``MultiscaleFlow`` (:213-295): the RealNVP / Glow multiscale model,
+  levels of layers joined by ``Merge``s, a base a level.  Its tree is
+  JAX's ``{"flows": ((level 0's layer trees), ...), "transform": tree or
+  None}``; the bases are called without a tree, so they stay at their
+  init, as JAX's.
 
 Directions as in ``NormalizingFlow``: ``forward`` is latent -> data
 (sampling), ``inverse`` data -> latent (log_prob).
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import pickle
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 from torch import nn
@@ -227,3 +229,89 @@ class ClassCondFlow(nn.Module):
         for layer in self.layers:
             z, _ = layer.forward(z)
         return z
+
+
+class MultiscaleFlow(nn.Module):
+    """Levels of layers over a base a level; level 0 is the deepest.
+    ``flows`` are per-level sequences of layer modules (``ParamLayer``s),
+    ``merges`` the ``Merge`` configurations that join level i - 1's output
+    to level i's latent, ``transform`` an optional layer module on the
+    data side.  ``forward`` is latents -> data (sampling), ``inverse``
+    data -> latents (log_prob); ``y``, when given, goes to the bases."""
+
+    def __init__(self, bases: Sequence[Any],
+                 flows: Sequence[Sequence[nn.Module]],
+                 merges: Sequence[Any], transform: Optional[nn.Module] = None,
+                 device="cuda", dtype=torch.float32):
+        super().__init__()
+        self.bases = tuple(bases)
+        self.flows = nn.ModuleList(nn.ModuleList(level) for level in flows)
+        self.merges = tuple(merges)
+        self.transform = transform
+        self._placement = (torch.device(device), dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return placement(self)[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return placement(self)[1]
+
+    def forward_and_log_det(self, z_list: Sequence[torch.Tensor]):
+        """Latents per level -> data, and the log-det."""
+        z = z_list[0]
+        log_det = z.new_zeros(z.shape[0])
+        for i, level in enumerate(self.flows):
+            if i > 0:
+                z, ld = self.merges[i - 1].forward({}, [z, z_list[i]])
+                log_det = log_det + ld
+            for layer in level:
+                z, ld = layer.forward(z)
+                log_det = log_det + ld
+        if self.transform is not None:
+            z, ld = self.transform.forward(z)
+            log_det = log_det + ld
+        return z, log_det
+
+    def inverse_and_log_det(self, x: torch.Tensor):
+        """Data -> latents per level (level 0 first), and the log-det."""
+        log_det = x.new_zeros(x.shape[0])
+        if self.transform is not None:
+            x, ld = self.transform.inverse(x)
+            log_det = log_det + ld
+        z_list = []
+        z = x
+        for i in range(len(self.flows) - 1, -1, -1):
+            for layer in reversed(self.flows[i]):
+                z, ld = layer.inverse(z)
+                log_det = log_det + ld
+            if i > 0:
+                (z, z_level), ld = self.merges[i - 1].inverse({}, z)
+                log_det = log_det + ld
+                z_list.append(z_level)
+        z_list.append(z)
+        return list(reversed(z_list)), log_det
+
+    def log_prob(self, x: torch.Tensor, y=None) -> torch.Tensor:
+        z_list, log_q = self.inverse_and_log_det(x)
+        for base, z in zip(self.bases, z_list):
+            log_q = log_q + (base.log_prob(z) if y is None
+                             else base.log_prob(z, y))
+        return log_q
+
+    def forward_kld(self, x: torch.Tensor, y=None) -> torch.Tensor:
+        return -torch.mean(self.log_prob(x, y))
+
+    def sample(self, num_samples: int,
+               generator: Optional[torch.Generator] = None,
+               y=None) -> torch.Tensor:
+        """Each level's latent from its base in turn, pushed forward."""
+        if y is None:
+            z_list = [base.sample(num_samples, generator, self.device)
+                      for base in self.bases]
+        else:
+            z_list = [base.sample(num_samples, y, generator)
+                      for base in self.bases]
+        return self.forward_and_log_det([z.to(self.dtype)
+                                         for z in z_list])[0]

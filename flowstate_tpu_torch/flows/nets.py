@@ -26,6 +26,10 @@ matmul and hidden activation in bf16: operands and outputs of the linears
 in bf16, layer-norm statistics in float32, the net's output cast back to
 the input's dtype.  Parameters stay in their own dtype.
 
+``conv2d`` is the image and Lipschitz layers' convolution (NCHW by OIHW,
+in the input's dtype); its forward, backward and double backward run
+without cuDNN's TF32, which PyTorch allows by default for float32.
+
 Numerics that follow JAX: ``jax.nn.gelu`` is the tanh approximation
 (``F.gelu(approximate="tanh")``), ``jax.nn.silu`` is ``F.silu``, and
 ``jnp.round`` and ``torch.round`` both round half to even.  JAX's
@@ -35,6 +39,7 @@ transformer takes its attention scores in float32 even under x64
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Tuple
@@ -87,6 +92,79 @@ def _linear(params: Tree, x: torch.Tensor,
     y = torch.matmul(x.reshape(g, -1, x.shape[-1]), w)
     return (y.reshape(*x.shape[:-1], out)
             + b.reshape(g, *([1] * (x.dim() - 2)), out))
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN's float32 convolutions without TF32 for the block (PyTorch
+    allows TF32 there by default); the previous setting comes back."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _pairs(stride: int, padding: int):
+    return [stride, stride], [padding, padding], [1, 1]
+
+
+class _Conv(torch.autograd.Function):
+    """``F.conv2d`` with cuDNN's TF32 off in each pass: cuDNN reads the
+    flag when a pass runs, so the forward, the backward and the double
+    backward (a power-series log-det differentiated by the loss) each set
+    it.  Every convolution of the port takes this path; off the card and
+    in float64 the flag changes nothing, so the float64 tests against JAX
+    hold its backward and double backward too."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, padding: int):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding)
+        with _no_tf32():
+            return F.conv2d(x, w, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx, gw = _ConvBackward.apply(g, x, w, *ctx.conv,
+                                     tuple(ctx.needs_input_grad[:2]))
+        return gx, gw, None, None
+
+
+class _ConvBackward(torch.autograd.Function):
+    """The convolution's input and weight gradients, and their own
+    gradients (``aten::_convolution_double_backward``), without TF32."""
+
+    @staticmethod
+    def forward(ctx, g, x, w, stride: int, padding: int, mask):
+        ctx.save_for_backward(g, x, w)
+        ctx.conv = (stride, padding)
+        with _no_tf32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, *_pairs(stride, padding), False, [0, 0], 1,
+                [mask[0], mask[1], False])
+        return gx, gw
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ggx, ggw):
+        g, x, w = ctx.saved_tensors
+        with _no_tf32():
+            gg, gx, gw = torch.ops.aten._convolution_double_backward(
+                ggx, ggw, None, g, w, x, *_pairs(*ctx.conv), False, [0, 0],
+                1, list(ctx.needs_input_grad[:3]))
+        return gg, gx, gw, None, None, None
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+           padding: int = 0) -> torch.Tensor:
+    """NCHW ``x`` by OIHW ``w`` in ``x``'s dtype, through ``_Conv``: on the
+    card a float32 convolution runs without TF32, which rounds the operands
+    to 10 bits, and a log q summed over an image's thousands of dimensions
+    would then miss a float64 tolerance."""
+    return _Conv.apply(x, w, stride, padding)
 
 
 def _layer_norm(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:

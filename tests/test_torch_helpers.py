@@ -43,16 +43,9 @@ TIGHT = dict(rtol=1e-12, atol=1e-12)
 WELLS_F32 = dict(rtol=1e-6, atol=1e-6)
 # ROADMAP "Not to port": the XLA compilation cache
 NOT_PORTED = {"enable_compilation_cache"}
-# not ported yet: the image, residual and Lipschitz layers, GlowBase and
-# MultiscaleFlow (ROADMAP queue 1 item 14c)
-DEFERRED = {
-    "ActNormImage", "ConvNet2d", "ConvResidualNet", "GlowBlock", "GlowBase",
-    "MultiscaleFlow", "Residual", "LipschitzMLP", "LipschitzCNN", "lipswish",
-    "geometric_sample", "poisson_sample", "batch_jacobian", "batch_trace",
-    "leaky_elu", "asym_squash", "InducedNormLinear", "InducedNormConv2d",
-    "InducedNormMLP", "InducedNormCNN", "normalize_u", "normalize_v",
-    "projmax", "vector_norm",
-}
+# every name of the JAX packages is ported (the image, residual and
+# Lipschitz family last)
+DEFERRED = set()
 
 
 @pytest.mark.parametrize("jax_pkg,port_pkg", [

@@ -230,11 +230,14 @@ def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
             "flowstate_tpu_torch.flows.base, "
             "flowstate_tpu_torch.flows.distributions, "
             "flowstate_tpu_torch.flows.elementary, "
+            "flowstate_tpu_torch.flows.image, "
+            "flowstate_tpu_torch.flows.lipschitz, "
             "flowstate_tpu_torch.flows.mixing, "
             "flowstate_tpu_torch.flows.models, "
             "flowstate_tpu_torch.flows.normalization, "
             "flowstate_tpu_torch.flows.periodic, "
             "flowstate_tpu_torch.flows.reshape, "
+            "flowstate_tpu_torch.flows.residual, "
             "flowstate_tpu_torch.flows.sampling, "
             "flowstate_tpu_torch.flows.stochastic, "
             "flowstate_tpu_torch.flows.toy_targets, "
