@@ -34,7 +34,13 @@ normflows' Glow example at full width, L = 3, K = 16, hidden 256, 3 x 32
 x 32 at batch 128, trained and timed, with one step timed with TF32
 allowed; its residual-flow example with the Lipschitz update; the
 induced-norm layers against closed forms and dense operators; the
-convolutions' float32 first and second derivatives against float64).
+convolutions' float32 first and second derivatives against float64),
+and runs the gate and sampler tools and the demos (phase 21: the
+quadrature behind 1.490 through K2 at 4e6 configurations against its
+float64 plain version and the exact values, ``move_kernel_check``'s
+statistics of K1 at 16,384 chains, ``ess_check``, ``sampler_bench``,
+``within_well_bench`` and ``pt_mbar_oracle`` at cut sizes, the five
+demos, and the host-bound share of a MALA and a hybrid round).
 Each phase prints one line with its name,
 PASS and its numbers; any failure raises and the script exits non-zero.
 The line before the last is a JSON record of the kernels; the last line
@@ -110,10 +116,9 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def reference_spec(n: int = 3):
-    from flowstate_tpu_torch.ops import Box, SystemSpec
+    from flowstate_tpu_torch.tools.common import double_well_spec
 
-    return SystemSpec.create(n, Box.from_density(n, 0.03, 1.0), num_wells=2,
-                             V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
+    return double_well_spec(n)
 
 
 def phase_device() -> str:
@@ -3882,6 +3887,383 @@ def phase_image_residual(card: str, glow: dict = None,
     return out
 
 
+# Phase 21: the gate and sampler tools and the demos.  The quadrature's
+# spreads: the numpy tool's ΔF at 4e6 points and the sector weights at
+# 2e6, over seeds 0-7 on a CPU (``python -m flowstate_tpu_torch.tools.
+# exact_free_energy --device cpu --spread_seeds 8``, whose CPU path takes
+# the numpy tool's draws): ΔF 1.4842 mean, 0.0041 standard deviation.
+QUAD_POINTS = 100_000         # numpy draws held on the card against the CPU
+QUAD_LZ_ATOL = 1e-4           # K2's ln Z and ΔF against the float64 plain
+# K2 against the float64 plain at (QUAD_M, 3): the hard core agrees but
+# where the closest pair's r^2 lies within this of the core's, float32's
+# rounding
+QUAD_CORE_R2_ATOL = 1e-6
+QUAD_M = 4_000_000            # the card's own draws for ΔF and a sector
+QUAD_SECTOR_M = 2_000_000
+QUAD_SEEDS = 4                # the particle-level ΔF's quadratures
+QUAD_SPREADS = 4              # gates: within 4 spreads
+QUAD_DF_SD = 0.0041
+QUAD_SECTOR_SD = {"AAA": 0.00015, "AAB": 0.00035, "ABB": 0.00036,
+                  "BBB": 0.00027}
+EXACT_SECTORS = {"AAA": 0.0378, "AAB": 0.3011, "ABB": 0.4939,
+                 "BBB": 0.1672}   # SECTORS.md
+EXACT_PARTICLE_DF = 0.3926        # ESS.md
+# the tools at cut sizes (the cuts: PERF.md section 4)
+TOOL_RUNS = {
+    "ess_check": ["--rounds", "60", "--epochs", "2", "--train_cap",
+                  "15360"],
+    "sampler_bench": ["--rounds", "24", "--moves_per_round", "20",
+                      "--epochs", "1", "--mala_equilibration", "300",
+                      "--hmc_equilibration", "50"],
+    "within_well_bench": ["--systems", "3:256,32:64", "--rounds", "12",
+                          "--mala_equilibration", "300",
+                          "--hmc_equilibration", "50"],
+    "pt_mbar_oracle": ["--n_list", "8"],
+}
+# the demos at full size where they fit, else at their smoke size
+DEMO_SMOKE = {"mcmc_demo": False, "tempering_demo": False, "nf_demo": True,
+              "hybrid_algorithm_1_demo": True,
+              "hybrid_algorithm_2_demo": True}
+
+
+def timed_s(fn):
+    """(fn(), seconds), the card synchronised after."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def counted(fn):
+    """(fn(), (K1, K2) launches by their wrappers' counts in the call)."""
+    from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+
+    cm.LAUNCHES = cp.LAUNCHES = 0
+    out = fn()
+    return out, (cm.LAUNCHES, cp.LAUNCHES)
+
+
+def hold_k2_at_quadrature_shape(spec, points, k2_fn) -> dict:
+    """K2 against its plain version in float64 on the same (M, 3, 2)
+    float32 points: the overlaps (+inf) in the same rows, bar rows whose
+    closest pair sits on the hard core within float32's rounding; the
+    finite energies within PAIR_RTOL of their terms' magnitudes plus
+    PAIR_ATOL; ln Z within QUAD_LZ_ATOL."""
+    import torch
+
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.ops import min_image
+    from flowstate_tpu_torch.ops.box import squared_norm
+    from flowstate_tpu_torch.tools import exact_free_energy as ef
+
+    e_k = k2_fn(spec, points)[0].double()
+    exact = points.double()
+    e_p = cp.total_energy_virial_plain(spec, exact)[0]
+    inf_k, inf_p = torch.isinf(e_k), torch.isinf(e_p)
+    split = torch.nonzero(inf_k != inf_p).flatten()
+    if split.numel():
+        x = exact[split]
+        d = min_image(x[:, :, None, :] - x[:, None, :, :], spec.box)
+        r2 = squared_norm(d) + torch.eye(x.shape[1], device=x.device) * 1e9
+        gap = (r2.amin((1, 2)) - spec.hard_core ** 2).abs()
+        require(bool((gap < QUAD_CORE_R2_ATOL).all()),
+                f"K2 at M={points.shape[0]}: overlap rows differ off the "
+                f"hard core: {split[:8].tolist()}, |r^2 - core^2| "
+                f"{gap[:8].tolist()}")
+    ok = ~(inf_k | inf_p)
+    e_mag = pair_magnitudes(spec, exact)[0]
+    de = (e_k - e_p)[ok].abs()
+    e_err = float(de.max()) if de.numel() else 0.0
+    require(bool((de <= PAIR_RTOL * e_mag[ok] + PAIR_ATOL).all()),
+            f"K2 at M={points.shape[0]}: energies differ by {e_err}")
+    lz_err = abs(ef.log_mean_boltzmann(e_k) - ef.log_mean_boltzmann(e_p))
+    require(lz_err < QUAD_LZ_ATOL,
+            f"K2 at M={points.shape[0]}: ln Z {lz_err:.3g} from the float64 "
+            "plain version")
+    return dict(e_err=e_err, lz_err=lz_err,
+                overlaps=int(inf_p.sum()), split_overlaps=int(split.numel()))
+
+
+def phase_quadrature(m: int = QUAD_M, sector_m: int = QUAD_SECTOR_M,
+                     seeds: int = QUAD_SEEDS,
+                     points: int = QUAD_POINTS) -> dict:
+    """(a) K2's quadrature against the float64 plain version on the same
+    numpy draws; the card's own draws against the exact values; the wall
+    seconds of each against the CPU's (numpy draws, float64)."""
+    import numpy as np
+    import torch
+
+    from flowstate_tpu_torch.tools import exact_free_energy as ef
+
+    lz = {}
+    for region in ("A", "B") + ef.SECTORS:
+        pts = ef.disk_points(region, points, np.random.default_rng(21), "cpu")
+        lz[region] = (ef.log_partition_of_points(pts.to(DEVICE)),
+                      ef.log_partition_of_points(pts))
+    lz_err = max(abs(a - b) for a, b in lz.values())
+    df_err = abs((lz["B"][0] - lz["A"][0]) - (lz["B"][1] - lz["A"][1]))
+    require(lz_err < QUAD_LZ_ATOL and df_err < QUAD_LZ_ATOL,
+            f"K2's ln Z {lz_err:.3g} / ΔF {df_err:.3g} from the float64 "
+            "plain version")
+
+    def card_run():
+        df, df_s = timed_s(lambda: ef.exact_delta_f(m, 0, DEVICE))
+        probs, sec_s = timed_s(lambda: ef.exact_sector_probs(sector_m, 0,
+                                                             DEVICE))
+        (p_df, p_sem), p_s = timed_s(lambda: ef.exact_particle_df(
+            m, seeds, DEVICE))
+        return dict(delta_f=df, delta_f_s=df_s, sectors=probs,
+                    sectors_s=sec_s, particle_df=p_df, particle_sem=p_sem,
+                    particle_s=p_s)
+
+    res, launches = counted(card_run)
+    # K2 alone at the quadrature's shape: (M, 3) float32, the wells added
+    from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.tools.n_scaling import (
+        k2_bound, pairs_inside_cutoff,
+    )
+
+    spec = reference_spec(3)
+    big = ef.disk_points("A", m, np.random.default_rng(22), DEVICE).to(
+        torch.float32).contiguous()
+    k2_fn = (cp.total_energy_virial_kernel if DEVICE == "cuda"
+             else cp.total_energy_virial_plain)
+    k2_ms = cuda_ms(lambda: k2_fn(spec, big), 5)
+    k2_bound_ms, k2_bound_by = k2_bound(m, 3, 2,
+                                        pairs_inside_cutoff(spec, big))
+    at_m = hold_k2_at_quadrature_shape(spec, big, k2_fn)
+    del big
+    require(abs(res["delta_f"] - PT_EXACT_DF) < QUAD_SPREADS * QUAD_DF_SD,
+            f"ΔF {res['delta_f']:.4f} vs {PT_EXACT_DF}")
+    for k, want in EXACT_SECTORS.items():
+        require(abs(res["sectors"][k] - want)
+                < QUAD_SPREADS * QUAD_SECTOR_SD[k],
+                f"sector {k} {res['sectors'][k]:.5f} vs {want}")
+    require(abs(res["particle_df"] - EXACT_PARTICLE_DF)
+            < QUAD_SPREADS * res["particle_sem"],
+            f"particle ΔF {res['particle_df']:.5f} +- "
+            f"{res['particle_sem']:.5f} vs {EXACT_PARTICLE_DF}")
+    require(launches[1] >= 2 + 4 + 4 * seeds, f"K2 launches {launches}")
+    # the CPU: the numpy tool's draws and float64 energies
+    _, cpu_df_s = timed_s(lambda: ef.exact_delta_f(m, 0, "cpu"))
+    _, cpu_sec_s = timed_s(lambda: ef.exact_sector_probs(sector_m, 0, "cpu"))
+    _, cpu_seed_s = timed_s(lambda: ef.exact_sector_probs(m, 0, "cpu"))
+    res.update(lz_err=lz_err, df_err=df_err, launches=launches, at_m=at_m,
+               cpu_delta_f_s=cpu_df_s, cpu_sectors_s=cpu_sec_s,
+               cpu_particle_seed_s=cpu_seed_s, k2_ms=k2_ms,
+               k2_bound_ms=k2_bound_ms, k2_bound_by=k2_bound_by)
+    phase("21a quadrature", points=points, lnZ_err=f"{lz_err:.3g}",
+          dF_err=f"{df_err:.3g}", at_M=f"e_err={at_m['e_err']:.3g} "
+          f"lnZ_err={at_m['lz_err']:.3g} overlaps={at_m['overlaps']} "
+          f"split={at_m['split_overlaps']}", dF=f"{res['delta_f']:.4f}",
+          dF_gate=f"1.490+-{QUAD_SPREADS * QUAD_DF_SD:.4f}",
+          sectors="/".join(f"{res['sectors'][k]:.4f}" for k in ef.SECTORS),
+          particle_dF=f"{res['particle_df']:.4f}+-{res['particle_sem']:.4f}",
+          card_s=f"{res['delta_f_s']:.3f}/{res['sectors_s']:.3f}/"
+                 f"{res['particle_s']:.3f}",
+          cpu_s=f"{cpu_df_s:.3f}/{cpu_sec_s:.3f}/{cpu_seed_s:.3f}x{seeds}",
+          K1_K2=f"{launches[0]}/{launches[1]}",
+          K2_ms_at_M=f"{k2_ms:.4f}", K2_bound_ms=f"{k2_bound_ms:.4f}",
+          K2_bound_by=k2_bound_by)
+    return res
+
+
+def in_dir(fn):
+    """fn() run in a fresh temporary working directory."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            return fn(tmp)
+        finally:
+            os.chdir(cwd)
+
+
+def phase_kernel_check(argv=()) -> dict:
+    """(b) ``move_kernel_check``: PALLAS.md's gates, K1 and the plain
+    engine on one budget."""
+    from flowstate_tpu_torch.tools import move_kernel_check
+
+    res, launches = counted(lambda: move_kernel_check.main(
+        list(argv) + ["--device", DEVICE]))
+    require(abs(res["acceptance_pallas"] - res["acceptance_xla"]) < 0.02,
+            f"acceptance {res['acceptance_pallas']} vs "
+            f"{res['acceptance_xla']}")
+    require(res["energy_drift_max"] < 1e-2,
+            f"drift {res['energy_drift_max']}")
+    require(res["energy_mean_sigma_distance"] < 4.0,
+            f"energy {res['energy_mean_sigma_distance']} sigma")
+    require(res["virial_poisoned"], "virial not poisoned")
+    require(res["autopad_ok"], f"C=1000 drift {res['odd_chains_drift']}")
+    require(res["n12_drift_max"] < 1e-2, f"N=12 drift {res['n12_drift_max']}")
+    require(res["n128_drift_per_particle"] < 1e-2
+            and 0.05 < res["n128_acceptance"] < 0.95,
+            f"N=128 {res['n128_drift_per_particle']} / "
+            f"{res['n128_acceptance']}")
+    require(res["ok"], "move_kernel_check not ok")
+    res["launches"] = launches
+    phase("21b move_kernel_check", chains=res["chains"],
+          moves=res["moves_per_chain"],
+          acceptance=f"{res['acceptance_pallas']}/{res['acceptance_xla']}",
+          drift_max=f"{res['energy_drift_max']:.3g}",
+          sigma=res["energy_mean_sigma_distance"],
+          moves_per_s=f"{res['pallas_moves_per_s']:.4g}/"
+                      f"{res['xla_moves_per_s']:.4g}",
+          K1_K2=f"{launches[0]}/{launches[1]}")
+    return res
+
+
+def phase_tool_runs(runs: dict = None) -> dict:
+    """(c) ``ess_check``, ``sampler_bench``, ``within_well_bench`` and
+    ``pt_mbar_oracle`` at cut sizes: every row finite, the acceptances in
+    range, the MBAR error bar finite; the gates the cut cannot carry are
+    printed, not asserted."""
+    import importlib
+
+    out = {}
+    for name, argv in (runs or TOOL_RUNS).items():
+        tool = importlib.import_module(f"flowstate_tpu_torch.tools.{name}")
+        res, launches = counted(lambda: in_dir(lambda tmp: tool.main(
+            argv + ["--device", DEVICE])))
+        if name == "ess_check":
+            require(0.0 <= res["hybrid_acceptance"] <= 1.0
+                    and math.isfinite(res["hybrid_ess"])
+                    and math.isfinite(res["hybrid_delta_f"]),
+                    f"ess_check {res}")
+            note = f"gate={'PASS' if res['value'] is not None else 'not met'}"
+        elif name == "sampler_bench":
+            require(len(res["rows"]) == 5, f"rows {res['rows']}")
+            for row in res["rows"]:
+                require(0.0 <= row["acceptance"] <= 1.0
+                        and math.isfinite(row["well_ess"])
+                        and math.isfinite(row["wall_s"]), f"row {row}")
+            for row in res["rows"][:3]:
+                require(0.0 < row["acceptance"] < 1.0, f"row {row}")
+            note = " ".join(f"{r['sampler'].split(' ')[0]}:"
+                            f"{r['acceptance']}/{r['wall_s']}s"
+                            for r in res["rows"])
+        elif name == "within_well_bench":
+            for row in res["rows"]:
+                require(0.0 < row["acceptance"] < 1.0
+                        and math.isfinite(row["energy_ess"])
+                        and math.isfinite(row["meanx_ess"]), f"row {row}")
+            note = " ".join(f"N{r['n']}:{r['sampler']}:{r['acceptance']}/"
+                            f"{r['energy_ess_per_s']}" for r in res["rows"])
+        else:
+            for s in res["systems"].values():
+                require(math.isfinite(s["df_particle_mbar"])
+                        and math.isfinite(s["df_particle_mbar_sem"])
+                        and s["df_particle_mbar_sem"] > 0, f"pt {s}")
+            note = " ".join(f"N{n}:{s['df_particle_mbar']}+-"
+                            f"{s['df_particle_mbar_sem']}"
+                            for n, s in res["systems"].items())
+        require(launches[0] > 0 and launches[1] > 0,
+                f"{name} K1/K2 launches {launches}")
+        out[name] = dict(result=res, launches=launches)
+        phase(f"21c {name}", K1_K2=f"{launches[0]}/{launches[1]}",
+              cut=" ".join(argv), numbers=note)
+    return out
+
+
+def phase_demos(smoke: dict = None) -> dict:
+    """(d) the five demos, checked for the files the JAX demos' tests
+    check."""
+    import importlib
+
+    import numpy as np
+
+    out = {}
+    for name, small in (smoke or DEMO_SMOKE).items():
+        demo = importlib.import_module(f"flowstate_tpu_torch.demos.{name}")
+
+        def go(tmp):
+            t0 = time.perf_counter()
+            res = demo.main(smoke=small, device=DEVICE)
+            written = os.path.join(tmp, "demo_results")
+            files = os.listdir(written) if os.path.isdir(written) else []
+            return res, files, time.perf_counter() - t0
+
+        (res, files, wall), launches = counted(lambda: in_dir(go))
+        run_id = {"hybrid_algorithm_1_demo": "a1_demo",
+                  "hybrid_algorithm_2_demo": "a2_demo"}.get(name, name)
+        if name in ("tempering_demo",):
+            require(bool(np.isfinite(res)), f"{name} gave {res}")
+        elif name == "nf_demo":
+            require(bool(np.isfinite(res).all()), f"nf_demo loss {res}")
+        else:
+            require(res is not None, f"{name} returned nothing")
+        if name != "tempering_demo":
+            require(run_id in files, f"{name} wrote {files}")
+        out[name] = dict(launches=launches, wall_s=wall, smoke=small)
+        phase(f"21d {name}", smoke=small, wall_s=f"{wall:.1f}",
+              K1_K2=f"{launches[0]}/{launches[1]}")
+    return out
+
+
+def phase_host_share(chains: int = 256, mala_moves: int = 20,
+                     local_moves: int = 150) -> dict:
+    """(e) ms (CUDA events, median of 7), device kernels and device ms
+    (profiler) of a MALA round of ``mala_moves`` moves and of a hybrid
+    round (K1's ``local_moves`` moves, then a big move of the K=15 flow
+    at A1's widths) at the tools' ``chains``, and the host-bound share 1 -
+    device ms / ms of each."""
+    import torch
+
+    from flowstate_tpu_torch.flows import build_circular_flow
+    from flowstate_tpu_torch.mcmc import nf_big_moves, run_moves_auto
+    from flowstate_tpu_torch.mcmc.mala import run_mala
+    from flowstate_tpu_torch.tools.ess_check import equilibrated_state
+
+    spec = reference_spec(3)
+    s0 = equilibrated_state(spec, chains, 5, DEVICE, 1000)
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    flow = build_circular_flow(3, 2, 5.0, K=15, hidden_units=256,
+                               num_bins=32, generator=g, device=DEVICE)
+    mala0 = s0.replace(max_disp=torch.full_like(s0.max_disp, 0.02))
+    rounds = {
+        "mala": lambda: run_mala(spec, 1.0, mala0, mala_moves),
+        "hybrid": lambda: nf_big_moves(
+            spec, 1.0, run_moves_auto(spec, 1.0, s0, local_moves), flow,
+            5.0, g)}
+    out = {}
+    for name, fn in rounds.items():
+        ms = median_ms(fn)
+        prof = per_call(fn)
+        share = (1.0 - prof["device_ms"] / ms
+                 if prof["device_ms"] is not None else None)
+        out[name] = dict(ms=ms, host_share=share, **prof)
+    phase("21e host share", chains=chains,
+          **{f"{k}_ms_kernels_device_ms_share":
+             f"{v['ms']:.3f}/{v['kernels']}/{v['device_ms']}/"
+             f"{v['host_share']}" for k, v in out.items()})
+    return out
+
+
+def phase_tools(card: str, quad: dict = None, kernel_check=(),
+                runs: dict = None, demos: dict = None) -> dict:
+    """Phase 21: the port's gate and sampler tools and its demos on the
+    card.  Returns each tool's (K1, K2) launches under ``launches``."""
+    t0 = time.perf_counter()
+    q = phase_quadrature(**(quad or {}))
+    kc = phase_kernel_check(kernel_check)
+    tools = phase_tool_runs(runs)
+    dem = phase_demos(demos)
+    share = phase_host_share()
+    launches = {"quadrature": q["launches"],
+                "move_kernel_check": kc["launches"],
+                **{k: v["launches"] for k, v in tools.items()},
+                **{k: v["launches"] for k, v in dem.items()}}
+    wall = time.perf_counter() - t0
+    print(f"  phase 21 took {wall:.1f} s", flush=True)
+    return {"quadrature": q, "kernel_check": kc, "tools": tools,
+            "demos": dem, "host_share": share, "launches": launches,
+            "wall_s": wall}
+
+
 def layer_slices(stacked: dict, k: int) -> list:
     """The K per-layer trees of a stacked tree (leaves (K, ...)), as an
     unstacked flow holds them."""
@@ -3927,6 +4309,7 @@ def main() -> int:
     multi = phase_multi_device(card)
     zoo = phase_zoo(card)
     phase_image_residual(card)
+    tools = phase_tools(card)
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{
@@ -3943,6 +4326,7 @@ def main() -> int:
         "launches_nets": {k: nets[k]["a1"]["launches"][0] for k in NETS},
         "launches_multi": multi["launches"][0],
         "launches_zoo": zoo["launches"][0],
+        "launches_tools": {k: v[0] for k, v in tools["launches"].items()},
         "max_abs_err": max(err, samplers["max_abs_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -3964,6 +4348,7 @@ def main() -> int:
         "launches_nets": {k: nets[k]["a1"]["launches"][1] for k in NETS},
         "launches_multi": multi["launches"][1],
         "launches_zoo": zoo["launches"][1],
+        "launches_tools": {k: v[1] for k, v in tools["launches"].items()},
         "max_abs_err": err_k2,
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

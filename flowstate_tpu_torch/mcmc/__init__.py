@@ -12,7 +12,8 @@ from flowstate_tpu_torch.mcmc.cuda_metropolis import (
 )
 from flowstate_tpu_torch.mcmc.hmc import (
     DEFAULT_NUM_LEAPFROG, HMC_TARGET_ACCEPTANCE, adjust_eps, hmc_apply,
-    run_hmc, run_hmc_equilibration,
+    hmc_move, run_hmc, run_hmc_batch, run_hmc_equilibration,
+    run_hmc_equilibration_batch,
 )
 from flowstate_tpu_torch.mcmc.hybrid import (
     BigMoveResult, apply_big_moves, bulk_judge_flow, judge_flow,
@@ -20,7 +21,10 @@ from flowstate_tpu_torch.mcmc.hybrid import (
 )
 from flowstate_tpu_torch.mcmc.initialise import (
     init_alternating_wells,
+    init_split_wells,
     initialise_fcc,
+    initialise_fcc_left_half,
+    initialise_fcc_right_half,
     initialise_low_left,
     initialise_low_right,
 )
@@ -33,9 +37,15 @@ from flowstate_tpu_torch.mcmc.metropolis import (
     adjust_displacement,
     apply_move,
     draw_tables,
+    metropolis_move,
     run_equilibration,
+    run_equilibration_batch,
     run_moves,
+    run_moves_batch,
+    run_production,
+    run_production_batch,
     run_production_with,
+    run_production_with_batch,
     sample_observables,
 )
 from flowstate_tpu_torch.mcmc.observables import (
@@ -55,13 +65,16 @@ from flowstate_tpu_torch.mcmc.tempering import (
 __all__ = [
     "ChainState", "init_chain_state", "chain_state_from_numpy",
     "resync_energy",
-    "apply_move", "draw_tables", "run_moves", "adjust_displacement",
-    "Observables", "sample_observables", "run_production_with",
-    "run_equilibration",
+    "apply_move", "draw_tables", "metropolis_move", "run_moves",
+    "run_moves_batch", "adjust_displacement", "Observables",
+    "sample_observables", "run_production", "run_production_batch",
+    "run_production_with", "run_production_with_batch",
+    "run_equilibration", "run_equilibration_batch",
     "run_moves_kernel", "run_moves_plain", "run_moves_auto",
     "run_production_kernel",
-    "init_alternating_wells", "initialise_fcc", "initialise_low_left",
-    "initialise_low_right",
+    "init_alternating_wells", "init_split_wells", "initialise_fcc",
+    "initialise_low_left", "initialise_low_right",
+    "initialise_fcc_left_half", "initialise_fcc_right_half",
     "check_equilibration", "acceptance_fraction", "ensemble_acceptance",
     "BigMoveResult", "to_centered", "to_box_frame", "nf_big_moves",
     "apply_big_moves", "judge_flow", "bulk_judge_flow",
@@ -74,6 +87,7 @@ __all__ = [
     "ReplicaExchangeResult", "run_replica_exchange",
     "potential_gradient", "mala_apply", "run_mala", "adjust_tau",
     "run_mala_equilibration", "MALA_TARGET_ACCEPTANCE",
-    "hmc_apply", "run_hmc", "adjust_eps", "run_hmc_equilibration",
+    "hmc_apply", "hmc_move", "run_hmc", "run_hmc_batch", "adjust_eps",
+    "run_hmc_equilibration", "run_hmc_equilibration_batch",
     "HMC_TARGET_ACCEPTANCE", "DEFAULT_NUM_LEAPFROG",
 ]

@@ -23,6 +23,8 @@ Batched over the (C, ...) chains.  ``run_hmc`` draws its randoms from
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from flowstate_tpu_torch.mcmc.mala import _accept, potential_gradient
@@ -62,6 +64,22 @@ def hmc_apply(spec: SystemSpec, beta: float, state: ChainState,
     accept = u < torch.exp(torch.clamp(log_alpha, max=0.0))
     return _accept(state, accept, x, e_new.to(state.energy.dtype),
                    vir_new.to(state.virial.dtype))
+
+
+def hmc_move(spec: SystemSpec, beta: float, state: ChainState,
+             num_leapfrog: int = DEFAULT_NUM_LEAPFROG,
+             p0: Optional[torch.Tensor] = None,
+             u: Optional[torch.Tensor] = None) -> ChainState:
+    """One HMC trajectory and decision of every chain (JAX's ``hmc_move``
+    is the same step for one chain): ``hmc_apply`` on the momenta ``p0``
+    and uniforms ``u`` when given, else ``run_hmc`` of one trajectory.
+    Advances ``calls``."""
+    if p0 is None and u is None:
+        return run_hmc(spec, beta, state, 1, num_leapfrog)
+    if p0 is None or u is None:
+        raise ValueError("give both p0 and u, or neither")
+    return hmc_apply(spec, beta, state, p0, u, num_leapfrog).replace(
+        calls=state.calls + 1)
 
 
 def run_hmc(spec: SystemSpec, beta: float, state: ChainState, num_moves: int,
@@ -109,3 +127,9 @@ def run_hmc_equilibration(spec: SystemSpec, beta: float, state: ChainState,
     if remainder > 0:
         state = run_hmc(spec, beta, state, remainder, num_leapfrog)
     return state
+
+
+# JAX's batched front ends vmap its one-chain functions over the chains;
+# these are batched already, so they are the same functions.
+run_hmc_batch = run_hmc
+run_hmc_equilibration_batch = run_hmc_equilibration

@@ -146,6 +146,15 @@ def run_moves(spec: SystemSpec, beta, state: ChainState,
     return state.replace(calls=state.calls + 1)
 
 
+def metropolis_move(spec: SystemSpec, beta, state: ChainState,
+                    tables: Optional[Tables] = None) -> ChainState:
+    """One displacement attempt of every chain: ``run_moves`` of one move
+    (JAX's ``metropolis_move`` is the same step for one chain).  Its
+    randoms come from ``tables`` ((C, 1) columns) or are drawn; advances
+    ``calls``."""
+    return run_moves(spec, beta, state, 1, tables)
+
+
 def adjust_displacement(state: ChainState,
                         target_acceptance: float = 0.5) -> ChainState:
     """Adaptive max displacement: factor = block acceptance / target,
@@ -221,6 +230,26 @@ def run_production_with(spec: SystemSpec, beta: float, state: ChainState,
         for k in vars(samples[0])})
 
 
+def run_production(spec: SystemSpec, beta: float, state: ChainState,
+                   num_samples: int, sampling_frequency: int,
+                   start_cycle: int = 0, tables: Optional[Tables] = None
+                   ) -> Tuple[ChainState, Observables]:
+    """``num_samples`` blocks of ``sampling_frequency`` moves of this
+    engine, one observable sample after each; leaves (C, T, ...).  The
+    randoms come from ``tables`` ((C, num_samples * sampling_frequency)
+    columns, block after block) or are drawn per block."""
+    def move_fn(s: ChainState, num_moves: int) -> ChainState:
+        if tables is None:
+            return run_moves(spec, beta, s, num_moves)
+        start = (s.calls - calls0) * num_moves
+        return run_moves(spec, beta, s, num_moves,
+                         tuple(t[:, start:start + num_moves] for t in tables))
+
+    calls0 = state.calls
+    return run_production_with(spec, beta, state, num_samples,
+                               sampling_frequency, move_fn, start_cycle)
+
+
 def run_equilibration(spec: SystemSpec, beta: float, state: ChainState,
                       num_steps: int, adjusting_frequency: int,
                       target_acceptance: float = 0.5,
@@ -237,3 +266,11 @@ def run_equilibration(spec: SystemSpec, beta: float, state: ChainState,
     if remainder > 0:
         state = move_fn(state, remainder)
     return state
+
+
+# JAX's batched front ends vmap its one-chain functions over the chains;
+# this engine is batched already, so they are the same functions.
+run_moves_batch = run_moves
+run_production_batch = run_production
+run_equilibration_batch = run_equilibration
+run_production_with_batch = run_production_with

@@ -17,23 +17,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
-import torch
-
 from flowstate_tpu_torch.experiments import algorithm1
+from flowstate_tpu_torch.tools.common import card
 from flowstate_tpu_torch.utils.config import algorithm1_config
 
 EXACT_DELTA_F = 1.490
-
-
-def card() -> str:
-    """``name, power.limit`` as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def main() -> None:
@@ -52,8 +42,7 @@ def main() -> None:
     wall_s = time.perf_counter() - t0
     df, sem = res["delta_f_mean"], res["delta_f_sem"]
     print(json.dumps({
-        "card": card() if torch.device(args.device).type == "cuda"
-        else "cpu",
+        "card": card(args.device),
         "chains": config.num_chains, "epochs": config.epochs,
         "rounds": config.big_move_attempts,
         "samples": config.initial_training_num_samples,

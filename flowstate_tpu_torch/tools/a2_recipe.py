@@ -34,11 +34,12 @@ import os
 import time
 
 import numpy as np
-import torch
 
-from flowstate_tpu_torch.analysis.wells import classify_particles
 from flowstate_tpu_torch.experiments import algorithm2
-from flowstate_tpu_torch.tools.a1_recipe import card
+from flowstate_tpu_torch.tools.common import card
+from flowstate_tpu_torch.tools.sector_check import (
+    block_bootstrap, sector_labels,
+)
 from flowstate_tpu_torch.utils.config import algorithm2_config
 
 SECTORS = ("AAA", "AAB", "ABB", "BBB")
@@ -52,36 +53,13 @@ BOOTSTRAP = 400        # resamples
 ACCEPTANCE_AT = (100, 300, 500, 1000)
 
 
-def sector_labels(positions: np.ndarray, half_box: float,
-                  r0: float) -> np.ndarray:
-    """(C, T, N, 2) -> (C, T): the number of particles in well B for a
-    configuration with every particle in a well, N + 1 for one with a
-    particle outside both."""
-    lab = classify_particles(positions, half_box, r0)       # (C, T, N)
-    n_b = (lab == 1).sum(axis=-1)
-    return np.where((lab == 2).any(axis=-1), positions.shape[2] + 1, n_b)
-
-
 def sector_weights(sec: np.ndarray, block: int = BLOCK,
                    resamples: int = BOOTSTRAP, seed: int = 0) -> dict:
     """Weights of the sectors of 3 particles (in-well configurations
     only), the outside share and the pure-sector ΔF of a (C, T) label
     array, each with the spread of a time-block bootstrap over all chains
     jointly."""
-    def stats(s):
-        counts = np.array([(s == k).sum() for k in range(5)], dtype=float)
-        in_well = counts[:4] / max(counts[:4].sum(), 1.0)
-        outside = counts[4] / max(counts.sum(), 1.0)
-        d_f = np.log(max(counts[3], 1.0) / max(counts[0], 1.0))
-        return np.concatenate([in_well, [outside, d_f]])
-
-    t = sec.shape[1]
-    blocks = np.array_split(np.arange(t), max(t // block, 1))
-    rng = np.random.default_rng(seed)
-    boot = np.array([stats(sec[:, np.concatenate(
-        [blocks[i] for i in rng.integers(0, len(blocks), len(blocks))])])
-        for _ in range(resamples)])
-    value, err = stats(sec), np.std(boot, axis=0, ddof=1)
+    value, err = block_bootstrap(sec, block, resamples, seed)
     out = {"samples": int(sec.size)}
     for i, name in enumerate(SECTORS):
         out[name] = {"weight": float(value[i]), "err": float(err[i]),
@@ -130,8 +108,7 @@ def main(argv=None) -> dict:
     trained = min(n, args.freeze_after) if args.freeze_after else n
     p_acc = res["p_acc_history"]
     doc = {
-        "card": card() if torch.device(args.device).type == "cuda"
-        else "cpu",
+        "card": card(args.device),
         "chains": config.num_chains, "cycles": n, "K": config.K,
         "master_seed": config.master_seed,
         "hidden_units": config.hidden_units, "num_bins": config.num_bins,

@@ -31,11 +31,10 @@ import os
 import time
 
 import numpy as np
-import torch
 
 from flowstate_tpu_torch.analysis.wells import classify_particles
 from flowstate_tpu_torch.experiments import algorithm1, algorithm2
-from flowstate_tpu_torch.tools.a1_recipe import card
+from flowstate_tpu_torch.tools.common import card
 from flowstate_tpu_torch.utils.config import ExperimentConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -136,8 +135,8 @@ def main(argv=None) -> dict:
         "peak": port["peak"] == EXPECTED["peak"],
         "df_particle": (EXPECTED["df_particle"][0] <= port["df_particle"]
                         <= EXPECTED["df_particle"][1])}
-    line = {"card": card() if torch.device(args.device).type == "cuda"
-            else "cpu", "driver": args.driver, "chains": config.num_chains,
+    line = {"card": card(args.device), "driver": args.driver,
+            "chains": config.num_chains,
             "num_particles": config.num_particles,
             "master_seed": config.master_seed,
             "blocked_K": config.blocked_K, "port": port, "jax": jax_side,

@@ -36,8 +36,9 @@ from flowstate_tpu_torch.mcmc.initialise import (
     init_alternating_wells, initialise_fcc,
 )
 from flowstate_tpu_torch.mcmc.state import init_chain_state
-from flowstate_tpu_torch.ops import Box, SystemSpec
-from flowstate_tpu_torch.tools.n_scaling import card, chains_for, k1_bound
+from flowstate_tpu_torch.ops import SystemSpec
+from flowstate_tpu_torch.tools.common import card, double_well_spec
+from flowstate_tpu_torch.tools.n_scaling import chains_for, k1_bound
 
 # (label, N, wells, chains, moves per launch, timed launches)
 SHAPES = [("main_path", 3, True, 100, 150, 200),
@@ -69,9 +70,7 @@ def shape_state(n: int, wells: bool, chains: int):
     """The reference double-well system (alternating wells start) or pure
     LJ at density 0.3 from the lattice, moved 256 times off its start."""
     if wells:
-        spec = SystemSpec.create(n, Box.from_density(n, 0.03, 1.0),
-                                 num_wells=2, V0_list=(-10.0, -10.5), r0=1.2,
-                                 k=15.0)
+        spec = double_well_spec(n)
         pos, _ = init_alternating_wells(chains, n, 0.03)
         max_disp = 0.65
     else:
@@ -112,7 +111,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("the move kernel runs on a CUDA device; torch "
                            "finds none")
-    emit(label=args.label, card=card(torch.device("cuda")))
+    emit(label=args.label, card=card("cuda"))
     res = build.build()
     lines = res.log.splitlines()
     for i, line in enumerate(lines):

@@ -24,7 +24,6 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import time
 from typing import Dict, Sequence
 
@@ -35,6 +34,7 @@ from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
 from flowstate_tpu_torch.mcmc.initialise import initialise_fcc
 from flowstate_tpu_torch.mcmc.state import init_chain_state, resync_energy
 from flowstate_tpu_torch.ops import SystemSpec
+from flowstate_tpu_torch.tools import common
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -306,11 +306,8 @@ def card(device: torch.device) -> dict:
     """The card's name and power limit (``nvidia-smi``), or the CPU."""
     if device.type != "cuda":
         return {"name": "cpu", "power_limit": None}
-    limit = subprocess.run(
-        ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader",
-         "-i", str(device.index or 0)],
-        capture_output=True, text=True, check=True).stdout.strip()
-    return {"name": torch.cuda.get_device_name(device), "power_limit": limit}
+    return {"name": torch.cuda.get_device_name(device),
+            "power_limit": common.card(device).rsplit(", ", 1)[1]}
 
 
 def parse_arguments(argv=None):

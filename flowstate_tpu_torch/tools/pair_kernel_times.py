@@ -39,12 +39,13 @@ from flowstate_tpu_torch.mcmc.initialise import (
     init_alternating_wells, initialise_fcc,
 )
 from flowstate_tpu_torch.mcmc.state import init_chain_state
-from flowstate_tpu_torch.ops import Box, SystemSpec
+from flowstate_tpu_torch.ops import SystemSpec
 from flowstate_tpu_torch.ops import cuda_pair as cp
 from flowstate_tpu_torch.tools.move_kernel_times import (
     emit, launch_ms, single_run_wall,
 )
-from flowstate_tpu_torch.tools.n_scaling import card, chains_for
+from flowstate_tpu_torch.tools.common import card, double_well_spec
+from flowstate_tpu_torch.tools.n_scaling import chains_for
 
 # (label, N, chains, timed calls, plain version's timed calls or 0)
 SHAPES = [("main_path", 3, 100, 1000, 100),
@@ -53,18 +54,13 @@ SHAPES = [("main_path", 3, 100, 1000, 100),
     for n in (8, 32, 128, 512, 1024)]
 
 
-def reference_spec(n: int) -> SystemSpec:
-    return SystemSpec.create(n, Box.from_density(n, 0.03, 1.0), num_wells=2,
-                             V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
-
-
 def batch(n: int, chains: int):
     """The main path's alternating-wells start at N=3, else the lattice at
     density 0.3 jittered by +-0.05 (numpy seed n), wrapped; on the card."""
     if n == 3:
         pos, _ = init_alternating_wells(chains, n, 0.03)
-        return reference_spec(n), torch.as_tensor(pos, dtype=torch.float32,
-                                                  device="cuda")
+        return double_well_spec(n), torch.as_tensor(
+            pos, dtype=torch.float32, device="cuda")
     lattice, box = initialise_fcc(n, 0.3, 1.0)
     rng = np.random.default_rng(n)
     pos = lattice + rng.uniform(-0.05, 0.05, size=(chains, n, 2))
@@ -91,7 +87,7 @@ def production_block(blocks: int = 100) -> dict:
     over ``blocks`` blocks, then of a profiled window of as many the
     card's busy time, its kernels per block, its idle share (1 - busy /
     wall) and the device microseconds per block by kernel name."""
-    spec = reference_spec(3)
+    spec = double_well_spec(3)
     pos, _ = init_alternating_wells(100, 3, 0.03)
     state = init_chain_state(spec, torch.as_tensor(pos, device="cuda"), 5,
                              0.65)
@@ -138,7 +134,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("the pair kernel runs on a CUDA device; torch "
                            "finds none")
-    emit(label=args.label, card=card(torch.device("cuda")))
+    emit(label=args.label, card=card("cuda"))
     lines = build.build().log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry" in line and "pair_" in line:

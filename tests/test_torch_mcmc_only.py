@@ -242,7 +242,21 @@ def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
             "flowstate_tpu_torch.flows.stochastic, "
             "flowstate_tpu_torch.flows.toy_targets, "
             "flowstate_tpu_torch.flows.transforms, "
-            "flowstate_tpu_torch.flows.utils, flowstate_tpu_torch.flows.vae; "
+            "flowstate_tpu_torch.flows.utils, flowstate_tpu_torch.flows.vae, "
+            "flowstate_tpu_torch.tools.common, "
+            "flowstate_tpu_torch.tools.exact_free_energy, "
+            "flowstate_tpu_torch.tools.sector_check, "
+            "flowstate_tpu_torch.tools.move_kernel_check, "
+            "flowstate_tpu_torch.tools.ess_check, "
+            "flowstate_tpu_torch.tools.pt_mbar_oracle, "
+            "flowstate_tpu_torch.tools.sampler_bench, "
+            "flowstate_tpu_torch.tools.within_well_bench, "
+            "flowstate_tpu_torch.tools.make_notebooks, "
+            "flowstate_tpu_torch.demos, flowstate_tpu_torch.demos.mcmc_demo, "
+            "flowstate_tpu_torch.demos.hybrid_algorithm_1_demo, "
+            "flowstate_tpu_torch.demos.hybrid_algorithm_2_demo, "
+            "flowstate_tpu_torch.demos.nf_demo, "
+            "flowstate_tpu_torch.demos.tempering_demo; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flowstate_tpu', 'matplotlib'}); "
             "print(bad); sys.exit(1 if bad else 0)")
