@@ -40,7 +40,13 @@ quadrature behind 1.490 through K2 at 4e6 configurations against its
 float64 plain version and the exact values, ``move_kernel_check``'s
 statistics of K1 at 16,384 chains, ``ess_check``, ``sampler_bench``,
 ``within_well_bench`` and ``pt_mbar_oracle`` at cut sizes, the five
-demos, and the host-bound share of a MALA and a hybrid round).
+demos, and the host-bound share of a MALA and a hybrid round), and runs
+the N-scaling studies at cut sizes and full widths (phase 22:
+``hybrid_n_scaling`` at N = 8 and 16 with Algorithm 1's flow,
+``n_mitigation``'s base, transformer and gnn rungs, ``blocked_wall`` and
+``blocked_depth`` with the blocked flow at K = 4 and 10 and the latter's
+16,384-chain throughput segment, ``alpha_study`` at alpha 1 and 0.5 on
+Algorithm 2's preset).
 Each phase prints one line with its name,
 PASS and its numbers; any failure raises and the script exits non-zero.
 The line before the last is a JSON record of the kernels; the last line
@@ -4264,6 +4270,156 @@ def phase_tools(card: str, quad: dict = None, kernel_check=(),
             "wall_s": wall}
 
 
+# the N-scaling studies at cut sizes and full widths: Algorithm 1's flow
+# (K=15, hidden 256, 32 bins), the blocked flow (K = 4 and 10, hidden
+# 128, 16 bins), Algorithm 2's preset (K=23, hidden 128); the cuts:
+# PERF.md section 4
+STUDY_RUNS = {
+    "hybrid_n_scaling": ["--n_list", "8,16", "--chains", "60",
+                         "--collect_rounds", "10", "--pt_rounds", "30",
+                         "--rounds", "20", "--acc_rounds", "5",
+                         "--epochs", "1"],
+    "n_mitigation": ["--rungs", "base,transformer,gnn", "--chains", "60",
+                     "--collect_rounds", "10", "--acc_rounds", "5"],
+    "blocked_wall": ["--n_list", "8", "--k_list", "1,2", "--chains", "60",
+                     "--pt_rounds", "150", "--rounds", "20",
+                     "--acc_rounds", "5", "--epochs", "1"],
+    "blocked_depth": ["--K_list", "4,10", "--chains", "60",
+                      "--pt_rounds", "150", "--rounds", "20",
+                      "--acc_rounds", "5", "--epochs", "1"],
+    "alpha_study": ["--cycles", "3", "--alphas", "1.0,0.5",
+                    "--output_dir", "alpha_study"],
+}
+STUDY_RUNG_EPOCHS = 1      # n_mitigation's rungs (40-200 epochs), cut
+STUDY_WALL_S = 240         # phase 22's bound (about 95 s alone)
+# the JAX package's TPU readings the cut cannot reach, printed beside the
+# port's: hybrid_n_scaling.json (N=8), blocked_depth.json (K=4, 10)
+STUDY_JAX = {"n8_local_acceptance": 0.00071, "n8_pt_df": 0.0546,
+             "depth_acceptance": {4: 0.16847, 10: 0.22102}}
+
+
+def finite(*xs) -> bool:
+    return all(x is not None and math.isfinite(x) for x in xs)
+
+
+def in_unit(x) -> bool:
+    return x is not None and 0.0 <= x <= 1.0
+
+
+def check_study(name: str, res: dict) -> str:
+    """Require what a cut run of study ``name`` must show (every row
+    finite where the JAX tool's would be, acceptances in [0, 1]); return
+    the gates the cut cannot carry, for printing only."""
+    if name == "hybrid_n_scaling":
+        notes = []
+        for s in res["systems"]:
+            pt = s["pt"]
+            require(finite(pt["df_particle"], pt["well_ess"], pt["wall_s"])
+                    and all(in_unit(a) for a in pt["edge_acceptance"]),
+                    f"N={s['n']} PT {pt}")
+            for tag in ("local_trained", "pt_trained"):
+                v = s[tag]
+                require(in_unit(v["big_move_acceptance"])
+                        and finite(v["df_particle"], v["df_vs_pt"],
+                                   v["well_ess_upper_bound"], v["wall_s"])
+                        and v["crossings"] >= 0, f"N={s['n']} {tag} {v}")
+                # a training set smaller than a batch trains no step
+                # (JAX's loss is NaN there too)
+                if v["train_configs"] >= 512:
+                    require(finite(v["fkld_first"], v["fkld_last"]),
+                            f"N={s['n']} {tag} loss {v}")
+                notes.append(f"N{s['n']}:{tag.split('_')[0]}:"
+                             f"acc={v['big_move_acceptance']}:"
+                             f"dF_vs_pt={v['df_vs_pt']}:"
+                             f"reliable={v['ess_reliable']}")
+        return (" ".join(notes) + f" jax_N8_local_acc="
+                f"{STUDY_JAX['n8_local_acceptance']} jax_N8_pt_dF="
+                f"{STUDY_JAX['n8_pt_df']}")
+    if name == "n_mitigation":
+        rows = res["systems"][-1]["rows"]
+        for row in rows:
+            require("error" not in row, f"rung {row}")
+            require(in_unit(row["acceptance"])
+                    and in_unit(row["ratio_log_frac_inf"])
+                    and finite(row["fkld_first"], row["fkld_last"]),
+                    f"rung {row}")
+            if row["ratio_log_frac_inf"] < 1.0:
+                require(finite(row["ratio_log_mean"], row["ratio_log_std"],
+                               row["ratio_log_p99"]), f"rung {row}")
+        return " ".join(f"{r['rung']}:acc={r['acceptance']}:log_r="
+                        f"{r['ratio_log_mean']}+-{r['ratio_log_std']}"
+                        for r in rows)
+    if name == "blocked_wall":
+        notes = []
+        for s in res["systems"]:
+            require(finite(s["pt"]["df_particle"]), f"PT {s['pt']}")
+            require(len(s["blocks"]) > 0, f"no block size ran: {s}")
+            for row in s["blocks"]:
+                require(in_unit(row["acceptance"])
+                        and finite(row["loss_first"], row["loss_last"],
+                                   row["df_particle"],
+                                   row["well_ess_upper_bound"]),
+                        f"N={s['n']} k={row['k']} {row}")
+                notes.append(f"N{s['n']}:k{row['k']}:acc="
+                             f"{row['acceptance']}(predicted "
+                             f"{row['predicted_acceptance']}):dF_vs_pt="
+                             f"{row['df_vs_pt']}")
+        return " ".join(notes)
+    if name == "blocked_depth":
+        for row in res["rows"]:
+            require(in_unit(row["acceptance"])
+                    and finite(row["loss_last"], row["df_particle"],
+                               row["blocked_moves_per_s"])
+                    and row["blocked_moves_per_s"] > 0, f"K={row['K']} {row}")
+        return " ".join(f"K{r['K']}:acc={r['acceptance']}(jax "
+                        f"{STUDY_JAX['depth_acceptance'].get(r['K'])}):"
+                        f"moves_per_s={r['blocked_moves_per_s']:.4g}"
+                        for r in res["rows"])
+    for run in res["runs"]:
+        require(in_unit(run["big_move_acceptance_final"])
+                and finite(run["delta_f_mean"], *run["loss_per_cycle"]),
+                f"alpha {run['alpha']}: {run}")
+    return " ".join(f"alpha{r['alpha']}:p_acc={r['big_move_acceptance_final']}"
+                    f":dF={r['delta_f_mean']:.4f}:wall={r['wall_s']}s"
+                    for r in res["runs"])
+
+
+def phase_studies(card: str, runs: dict = None,
+                  rung_epochs: int = STUDY_RUNG_EPOCHS) -> dict:
+    """Phase 22: the five N-scaling studies at cut sizes (``runs``, each
+    in a fresh working directory), K1 and K2 launched by each; returns
+    each study's result and (K1, K2) launches, and the phase's wall."""
+    import importlib
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, argv in (runs or STUDY_RUNS).items():
+        tool = importlib.import_module(f"flowstate_tpu_torch.tools.{name}")
+        rungs = getattr(tool, "RUNGS", None)
+        if rungs is not None:
+            tool.RUNGS = {k: dict(v, epochs=rung_epochs)
+                          for k, v in rungs.items()}
+        try:
+            (res, wall), launches = counted(lambda: in_dir(
+                lambda tmp: timed_s(lambda: tool.main(
+                    argv + ["--device", DEVICE]))))
+        finally:
+            if rungs is not None:
+                tool.RUNGS = rungs
+        note = check_study(name, res)
+        require(launches[0] > 0 and launches[1] > 0,
+                f"{name} K1/K2 launches {launches}")
+        out[name] = dict(result=res, launches=launches, wall_s=wall)
+        phase(f"22 {name}", card=repr(card), wall_s=f"{wall:.1f}",
+              K1_K2=f"{launches[0]}/{launches[1]}", cut=" ".join(argv),
+              not_asserted=note)
+    wall = time.perf_counter() - t0
+    require(wall < STUDY_WALL_S, f"phase 22 took {wall:.1f} s")
+    print(f"  phase 22 took {wall:.1f} s", flush=True)
+    return {"studies": out, "wall_s": wall,
+            "launches": {k: v["launches"] for k, v in out.items()}}
+
+
 def layer_slices(stacked: dict, k: int) -> list:
     """The K per-layer trees of a stacked tree (leaves (K, ...)), as an
     unstacked flow holds them."""
@@ -4310,6 +4466,8 @@ def main() -> int:
     zoo = phase_zoo(card)
     phase_image_residual(card)
     tools = phase_tools(card)
+    studies = phase_studies(card)
+    launches_tools = {**tools["launches"], **studies["launches"]}
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{
@@ -4326,7 +4484,7 @@ def main() -> int:
         "launches_nets": {k: nets[k]["a1"]["launches"][0] for k in NETS},
         "launches_multi": multi["launches"][0],
         "launches_zoo": zoo["launches"][0],
-        "launches_tools": {k: v[0] for k, v in tools["launches"].items()},
+        "launches_tools": {k: v[0] for k, v in launches_tools.items()},
         "max_abs_err": max(err, samplers["max_abs_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -4348,7 +4506,7 @@ def main() -> int:
         "launches_nets": {k: nets[k]["a1"]["launches"][1] for k in NETS},
         "launches_multi": multi["launches"][1],
         "launches_zoo": zoo["launches"][1],
-        "launches_tools": {k: v[1] for k, v in tools["launches"].items()},
+        "launches_tools": {k: v[1] for k, v in launches_tools.items()},
         "max_abs_err": err_k2,
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -40,7 +40,7 @@ from flowstate_tpu_torch.analysis.ess import (
 from flowstate_tpu_torch.flows import build_circular_flow
 from flowstate_tpu_torch.mcmc.cuda_metropolis import run_moves_auto
 from flowstate_tpu_torch.mcmc.hybrid import nf_big_moves, to_centered
-from flowstate_tpu_torch.mcmc.initialise import init_alternating_wells
+from flowstate_tpu_torch.mcmc.initialise import init_split_wells
 from flowstate_tpu_torch.mcmc.metropolis import run_equilibration
 from flowstate_tpu_torch.mcmc.state import init_chain_state
 from flowstate_tpu_torch.tools import common
@@ -89,10 +89,11 @@ def particle_df(cnt_a: np.ndarray, cnt_b: np.ndarray):
 
 def equilibrated_state(spec, chains: int, seed: int, device,
                        steps: int = None):
-    """The alternating-well start, ``steps`` kernel moves (by default
-    ``common.EQUILIBRATION_MOVES``) with the displacement adapted every
-    500."""
-    positions, _ = init_alternating_wells(chains, spec.num_particles, 0.03)
+    """The split-wells start (``init_split_wells``: in-well grids up to
+    N = 12, half-box lattices above) at rho 0.03 and displacement 0.65,
+    then ``steps`` kernel moves (by default ``common.EQUILIBRATION_MOVES``)
+    with the displacement adapted every 500."""
+    positions, _ = init_split_wells(chains, spec.num_particles, 0.03)
     state = init_chain_state(spec, torch.as_tensor(positions, device=device),
                              seed, 0.65)
     return run_equilibration(

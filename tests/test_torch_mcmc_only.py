@@ -251,6 +251,11 @@ def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
             "flowstate_tpu_torch.tools.pt_mbar_oracle, "
             "flowstate_tpu_torch.tools.sampler_bench, "
             "flowstate_tpu_torch.tools.within_well_bench, "
+            "flowstate_tpu_torch.tools.hybrid_n_scaling, "
+            "flowstate_tpu_torch.tools.n_mitigation, "
+            "flowstate_tpu_torch.tools.blocked_wall, "
+            "flowstate_tpu_torch.tools.blocked_depth, "
+            "flowstate_tpu_torch.tools.alpha_study, "
             "flowstate_tpu_torch.tools.make_notebooks, "
             "flowstate_tpu_torch.demos, flowstate_tpu_torch.demos.mcmc_demo, "
             "flowstate_tpu_torch.demos.hybrid_algorithm_1_demo, "

@@ -35,7 +35,8 @@ from flowstate_tpu import ops as jops
 from flowstate_tpu_torch import mcmc as tmcmc
 from flowstate_tpu_torch.ops.cuda_pair import total_energy_virial_plain
 from flowstate_tpu_torch.tools import (
-    ess_check, exact_free_energy, move_kernel_check, pt_mbar_oracle,
+    alpha_study, blocked_depth, blocked_wall, ess_check, exact_free_energy,
+    hybrid_n_scaling, move_kernel_check, n_mitigation, pt_mbar_oracle,
     sampler_bench, sector_check, within_well_bench,
 )
 from flowstate_tpu_torch.tools import common
@@ -339,7 +340,8 @@ def test_within_well_bench_main(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("module", [
     exact_free_energy, move_kernel_check, ess_check, pt_mbar_oracle,
-    sampler_bench, within_well_bench])
+    sampler_bench, within_well_bench, hybrid_n_scaling, n_mitigation,
+    blocked_wall, blocked_depth, alpha_study])
 def test_tools_default_to_the_card(module):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main([])
