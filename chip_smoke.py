@@ -46,7 +46,11 @@ the N-scaling studies at cut sizes and full widths (phase 22:
 ``n_mitigation``'s base, transformer and gnn rungs, ``blocked_wall`` and
 ``blocked_depth`` with the blocked flow at K = 4 and 10 and the latter's
 16,384-chain throughput segment, ``alpha_study`` at alpha 1 and 0.5 on
-Algorithm 2's preset).
+Algorithm 2's preset), and runs the roofs and the measurement tools
+(phase 23: the float32 and bf16 matmul roofs calibrated against their
+published peaks, ``train_roofline`` at batch 512 in both dtypes with its
+big-move round at 16,384 chains, ``dp_measure`` and ``scaling_check`` at
+world size 1 over NCCL with K1).
 Each phase prints one line with its name,
 PASS and its numbers; any failure raises and the script exits non-zero.
 The line before the last is a JSON record of the kernels; the last line
@@ -744,7 +748,7 @@ def device_kernels(fn, reps: int) -> list:
     """The profiler's device events (kernels, copies, memsets) of ``reps``
     calls of ``fn`` after one warm-up call (empty if the profiler records
     none)."""
-    from flowstate_tpu_torch.tools.pair_kernel_times import device_events
+    from flowstate_tpu_torch.tools.common import device_events
 
     return device_events(fn, reps)
 
@@ -1199,8 +1203,6 @@ def phase_sweep(num_chains: int = 64) -> dict:
     return {"wall_s": wall_s}
 
 
-# A1's flow at full width (utils/config.py::algorithm1_config)
-A1_FLOW = dict(K=15, hidden_units=256, num_bins=32)
 # the card's float32 log q against the CPU's float64 on the same weights:
 # |d| <= FLOW_RTOL * (1 + |log q|).  Fifteen layers of spline log-dets
 # accumulate float32 rounding; on these weights (log q from -30 to -7) the
@@ -1215,6 +1217,7 @@ def seeded_flow_tree(flow, seed: int):
     N(0, 0.1), the unconditional splines' parameters N(0, 0.3)."""
     import numpy as np
 
+    from flowstate_tpu_torch.entry import A1_FLOW
     from flowstate_tpu_torch.flows import params_to_jax, tree_map
 
     rng = np.random.default_rng(seed)
@@ -1271,6 +1274,7 @@ def phase_flow(card: str, chains: int = 16384, batch: int = 512,
     import numpy as np
     import torch
 
+    from flowstate_tpu_torch.entry import A1_FLOW
     from flowstate_tpu_torch.flows import build_circular_flow, params_from_jax
     from flowstate_tpu_torch.mcmc import (
         init_alternating_wells, init_chain_state, nf_big_moves,
@@ -2489,6 +2493,7 @@ def phase_nets(card: str, chains: int = 16384, batch: int = 512,
     import numpy as np
     import torch
 
+    from flowstate_tpu_torch.entry import A1_FLOW
     from flowstate_tpu_torch.experiments import algorithm1
     from flowstate_tpu_torch.flows import build_circular_flow, params_from_jax
     from flowstate_tpu_torch.mcmc import (
@@ -4420,6 +4425,160 @@ def phase_studies(card: str, runs: dict = None,
             "launches": {k: v["launches"] for k, v in out.items()}}
 
 
+# phase 23: the roofs and the measurement tools.  train_roofline at batch
+# 512 in float32 and bf16 with the bf16 gate cut to 1 epoch (of 10) on a
+# training set of 10,240 points (of 102,400), and its big-move phase at
+# 16,384 chains; its timed windows cut to 3 calls (of 0.6 s and at least
+# 3: the profiler's records of a window take most of the phase); dp_measure
+# at 20 steps; scaling_check at world size 1
+ROOFLINE_CUT = dict(TRAIN_SET=10_240, GATE_EPOCHS=1)
+WINDOW_CUT = dict(MIN_WINDOW_S=0.0, MAX_WINDOW_CALLS=3)
+ROOFLINE_ARGV = ["--batches", "512"]
+DP_ARGV = ["--steps", "20"]
+SCALING_ARGV = ["--world_sizes", "1"]
+SHARE_MAX = 1.05            # a share of a peak or roof, measured
+ROOF_SHARE_MIN = 0.05       # a calibrated matmul roof's share of its peak
+ROOFS_WALL_S = 120
+
+
+def shares_of(row: dict) -> dict:
+    """The shares of a peak or roof in a train_roofline row."""
+    return {k: v for k, v in row.items()
+            if k.startswith(("frac_of_", "hbm_frac", "mxu_frac"))}
+
+
+def rates_ok(*xs) -> bool:
+    return finite(*xs) and all(x > 0 for x in xs)
+
+
+def phase_roofs(card: str, cut: dict = None, window: dict = None,
+                roofline_argv=ROOFLINE_ARGV, dp_argv=DP_ARGV,
+                scaling_argv=SCALING_ARGV) -> dict:
+    """Phase 23: the matmul roofs calibrated in float32 (no TF32) and
+    bf16, each within (ROOF_SHARE_MIN, SHARE_MAX] of its published peak
+    (into a temporary file the tools then read); ``train_roofline``
+    (its windows cut to ``window``), ``dp_measure`` and ``scaling_check``
+    at cut sizes, each in a fresh
+    working directory: every rate finite and positive, every share in
+    (0, SHARE_MAX], K2 launched by the big-move rounds and K1 by
+    scaling_check's rank.  Returns the tools' results, (K1, K2) launches
+    under ``launches`` and the wall."""
+    import torch
+
+    from flowstate_tpu_torch.tools import (
+        common, dp_measure, scaling_check, train_roofline,
+    )
+    from flowstate_tpu_torch.utils import roofs
+
+    t0 = time.perf_counter()
+    cut = ROOFLINE_CUT if cut is None else cut
+    window = WINDOW_CUT if window is None else window
+    saved_path = roofs.MATMUL_ROOF_PATH
+    saved = {k: getattr(train_roofline, k) for k in cut}
+    saved_window = {k: getattr(common, k) for k in window}
+    out = {"roofs": {}}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            roofs.MATMUL_ROOF_PATH = os.path.join(tmp, "matmul_roof.json")
+            for dtype in (torch.float32, torch.bfloat16):
+                rate = roofs.calibrate_matmul_roof(dtype=dtype, device=DEVICE)
+                share = rate / roofs.peak_flops(dtype)
+                require(ROOF_SHARE_MIN < share <= SHARE_MAX,
+                        f"{dtype} matmul roof {rate:.4g} FLOP/s, {share:.4f} "
+                        f"of its peak")
+                out["roofs"][str(dtype)] = {"flops_per_s": rate,
+                                            "of_peak": share}
+                phase("23 matmul roof", card=repr(card), dtype=dtype,
+                      flops_per_s=f"{rate:.6g}", of_peak=f"{share:.4f}")
+            for k, v in cut.items():
+                setattr(train_roofline, k, v)
+            for k, v in window.items():
+                setattr(common, k, v)
+            (tr, tr_wall), tr_launches = counted(lambda: in_dir(
+                lambda _: timed_s(lambda: train_roofline.main(
+                    roofline_argv + ["--device", DEVICE]))))
+    finally:
+        roofs.MATMUL_ROOF_PATH = saved_path
+        for k, v in saved.items():
+            setattr(train_roofline, k, v)
+        for k, v in saved_window.items():
+            setattr(common, k, v)
+    print(f"  23 train_roofline took {tr_wall:.1f} s", flush=True)
+    for row in tr["train"] + tr["big_move"]:
+        shares = shares_of(row)
+        require(rates_ok(row["calls_per_s"], row["device_ms_per_call"])
+                and row["matmul_flops"] > 0,
+                f"train_roofline {row['phase']} {row['dtype']}: rate "
+                f"{row['calls_per_s']}, device ms {row['device_ms_per_call']}")
+        require(all(v is not None and 0 < v <= SHARE_MAX
+                    for v in shares.values()),
+                f"train_roofline {row['phase']} {row['dtype']} shares "
+                f"{shares}")
+        phase(f"23 {row['phase']}", card=repr(card), dtype=row["dtype"],
+              size=row.get("batch", row.get("chains")),
+              per_s=f"{row['calls_per_s']:.6g}",
+              device_ms=f"{row['device_ms_per_call']:.4f}",
+              kernels=row["kernels_per_call"],
+              gflop=f"{row['gflops_per_call']:.4f}",
+              of_peak_wall=f"{row['frac_of_peak']:.4g}",
+              of_peak_device=f"{row['frac_of_peak_device']:.4g}",
+              of_roof_device=f"{row['frac_of_matmul_roof_device']:.4g}",
+              hbm_device=f"{row['hbm_frac_device']:.4g}")
+    for tag in ("f32", "bfloat16"):
+        for name, c in tr[f"big_move_components_{tag}"].items():
+            # the profiler's kernel time, or, where it kept no record of
+            # the window (F6), the events' time around it
+            ms = c["events_ms"] if c["device_ms"] is None else c["device_ms"]
+            require(rates_ok(c["calls_per_s"], ms),
+                    f"big-move part {name} {tag}: {c}")
+    gate = tr["train_quality_gate"]
+    require(rates_ok(abs(gate["f32_final_loss"]), abs(gate["bf16_final_loss"])),
+            f"gate losses {gate}")
+    # the gate's verdict is a finding (R13), printed and not asserted
+    print(f"  23 bf16 gate (cut to {gate['epochs']} epoch on "
+          f"{gate['train_set']} points): rel_diff {gate['rel_diff']:.5f}, "
+          f"ok={gate['ok']}", flush=True)
+    require(tr_launches[1] > 0, f"train_roofline launched K2 "
+                                f"{tr_launches[1]} times")
+
+    (dp, dp_wall), dp_launches = counted(lambda: in_dir(lambda _: timed_s(
+        lambda: dp_measure.main(dp_argv + ["--device", DEVICE]))))
+    effs = [r[k] for r in dp["rows"]
+            for k in ("dp_efficiency_wall", "dp_efficiency_device")]
+    require(rates_ok(dp["wall_ms_per_step"], dp["device_ms_per_step"], *effs)
+            and max(effs) <= 1, f"dp_measure {dp}")
+    phase("23 dp_measure", card=repr(card),
+          wall_ms=f"{dp['wall_ms_per_step']:.3f}",
+          device_ms=f"{dp['device_ms_per_step']:.3f}",
+          kernels=dp["kernels_per_step"], grad_bytes=dp["grad_bytes"],
+          eff8_wall=f"{dp['dp_efficiency_at_8']:.4f}",
+          eff8_device=f"{dp['dp_efficiency_at_8_device']:.4f}",
+          wall_s=f"{dp_wall:.1f}")
+
+    sc, sc_wall = in_dir(lambda _: timed_s(lambda: scaling_check.main(
+        scaling_argv + ["--device", DEVICE])))
+    mc, trn = sc["mcmc"][0], sc["training"][0]
+    require(sc["backend"] == "nccl" and mc["k1_launches"] > 0
+            and rates_ok(mc["moves_per_s"], trn["samples_per_s"])
+            and mc["efficiency"] == trn["efficiency"] == 1.0,
+            f"scaling_check {sc}")
+    phase("23 scaling_check", card=repr(card), backend=sc["backend"],
+          moves_per_s=f"{mc['moves_per_s']:.6g}",
+          samples_per_s=f"{trn['samples_per_s']:.6g}",
+          k1=mc["k1_launches"], not_run=sc["not_run"] or None,
+          wall_s=f"{sc_wall:.1f}")
+    wall = time.perf_counter() - t0
+    require(wall < ROOFS_WALL_S, f"phase 23 took {wall:.1f} s")
+    print(f"  phase 23 took {wall:.1f} s (train_roofline {tr_wall:.1f} s)",
+          flush=True)
+    out.update(train_roofline=tr, dp_measure=dp, scaling_check=sc,
+               wall_s=wall,
+               launches={"train_roofline": tr_launches,
+                         "dp_measure": dp_launches,
+                         "scaling_check": (mc["k1_launches"], 0)})
+    return out
+
+
 def layer_slices(stacked: dict, k: int) -> list:
     """The K per-layer trees of a stacked tree (leaves (K, ...)), as an
     unstacked flow holds them."""
@@ -4467,7 +4626,9 @@ def main() -> int:
     phase_image_residual(card)
     tools = phase_tools(card)
     studies = phase_studies(card)
-    launches_tools = {**tools["launches"], **studies["launches"]}
+    roof = phase_roofs(card)
+    launches_tools = {**tools["launches"], **studies["launches"],
+                      **roof["launches"]}
     print(f"total_s={time.perf_counter() - t0:.1f}", flush=True)
     k1, k2 = timing["k1"], timing["k2"]["main_path"]
     print(json.dumps({"kernels": [{

@@ -2,7 +2,9 @@
 the card's name and power limit, a timer of host loops, the reference
 system and its equilibration length, the ``--evidence`` option and the
 writer of its JSON; for the N-scaling studies, their equilibration
-length, the timed loop and the hybrid run's summary."""
+length, the timed loop and the hybrid run's summary; for the roofline
+tools, the steady timed window, the profiler's device events and time,
+and a model's parameter and gradient bytes."""
 
 from __future__ import annotations
 
@@ -51,6 +53,16 @@ def card(device) -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def card_fields(device) -> dict:
+    """``{"name", "power_limit"}`` of the card, as the tools write it into
+    their JSON beside a measurement; ``{"name": "cpu", "power_limit":
+    None}`` on the CPU."""
+    if torch.device(device).type != "cuda":
+        return {"name": "cpu", "power_limit": None}
+    return {"name": torch.cuda.get_device_name(device),
+            "power_limit": card(device).rsplit(", ", 1)[1]}
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -83,6 +95,80 @@ class HostLoopTimer:
         else:
             self.seconds = time.perf_counter() - self._t0
         return False
+
+
+# the roofline tools' timed windows (the JAX tools' ``_timeit``): at least
+# 0.6 s of calls, at least 3 and at most 60
+MIN_WINDOW_S = 0.6
+MAX_WINDOW_CALLS = 60
+
+
+def steady_rate(fn, device, calls: int = None) -> tuple:
+    """``(calls per second, calls)`` of ``fn()`` by the host clock around
+    a window that ends in a synchronize: one call to warm up, then
+    ``calls`` calls; where ``calls`` is None, one call timed alone sizes
+    the window to ``MIN_WINDOW_S`` (at least 3 calls, at most
+    ``MAX_WINDOW_CALLS``)."""
+    fn()
+    sync(device)
+    if calls is None:
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        one = max(time.perf_counter() - t0, 1e-6)
+        calls = min(MAX_WINDOW_CALLS,
+                    max(3, int(np.ceil(MIN_WINDOW_S / one))))
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync(device)
+    return calls / (time.perf_counter() - t0), calls
+
+
+def device_events(fn, reps: int) -> list:
+    """The profiler's device events of ``reps`` calls after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_profile(fn, calls: int, device) -> dict:
+    """Device time and kernels per call of ``fn()`` over ``calls`` calls
+    after a warm one: the profiler's device events summed (``"source":
+    "profiler"``).  Where it records none (F6), ``device_ms`` and
+    ``kernels`` stay None and ``events_ms`` holds the milliseconds a call
+    between two CUDA events around the window (``"events"``): the wall of
+    the host's dispatch and the card's work, not a kernel time.  On the
+    CPU every field is None: a CPU run fills no device metric."""
+    out = {"device_ms": None, "kernels": None, "events_ms": None,
+           "source": None}
+    if torch.device(device).type != "cuda":
+        return out
+    events = device_events(fn, calls)
+    if events:
+        return {**out, "device_ms": sum(e.time_range.elapsed_us()
+                                        for e in events) / 1e3 / calls,
+                "kernels": len(events) / calls, "source": "profiler"}
+    with HostLoopTimer(device) as timer:
+        for _ in range(calls):
+            fn()
+    return {**out, "events_ms": timer.seconds * 1e3 / calls,
+            "source": "events"}
+
+
+def grad_counts(model) -> tuple:
+    """``(parameters, gradient bytes)``: each parameter's gradient in its
+    own dtype."""
+    params = list(model.parameters())
+    return (sum(p.numel() for p in params),
+            sum(p.numel() * p.element_size() for p in params))
 
 
 def double_well_spec(n: int = 3, num_wells: int = 2,

@@ -37,6 +37,7 @@ import torch
 from flowstate_tpu_torch.analysis.ess import (
     crossing_bound_ess, effective_sample_size, multichain_ess,
 )
+from flowstate_tpu_torch.entry import A1_FLOW
 from flowstate_tpu_torch.flows import build_circular_flow
 from flowstate_tpu_torch.mcmc.cuda_metropolis import run_moves_auto
 from flowstate_tpu_torch.mcmc.hybrid import nf_big_moves, to_centered
@@ -52,7 +53,7 @@ from flowstate_tpu_torch.tools.exact_free_energy import exact_particle_df
 from flowstate_tpu_torch.training import TrainConfig, train
 
 WELL_RADIUS = 1.1 * 1.2
-FLOW_WIDTHS = dict(K=15, hidden_units=256, num_bins=32)    # A1's flow
+FLOW_WIDTHS = A1_FLOW                                       # A1's flow
 
 
 def well_counts(spec, positions: torch.Tensor):
@@ -113,8 +114,7 @@ def train_on_configs(spec, configs: torch.Tensor, train_cap: int,
         data = data[torch.as_tensor(idx, device=data.device)]
     g = torch.Generator(device=device).manual_seed(seed)
     model = build_circular_flow(spec.num_particles, 2, half_box,
-                                num_blocks=2, generator=g, device=device,
-                                **FLOW_WIDTHS)
+                                generator=g, device=device, **FLOW_WIDTHS)
     config = TrainConfig(batch_size=min(batch, int(data.shape[0])),
                          epochs=epochs, lr=1e-4)
     _, _, _, loss_epoch = train(model, data, config, g)

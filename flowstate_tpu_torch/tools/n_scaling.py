@@ -35,10 +35,9 @@ from flowstate_tpu_torch.mcmc.initialise import initialise_fcc
 from flowstate_tpu_torch.mcmc.state import init_chain_state, resync_energy
 from flowstate_tpu_torch.ops import SystemSpec
 from flowstate_tpu_torch.tools import common
+# the H100's published peaks: fp32 outside the tensor cores, HBM3
+from flowstate_tpu_torch.utils.roofs import PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 # fp32 operations (an FMA counts two), read off the kernels' sources:
 # K1, metropolis_moves.cu: a pair_term (two min images 10, r^2 3, max 1,
 # division 1, powers 2, energy 4, sum 1), a well_term (two min images 10,
@@ -302,14 +301,6 @@ def time_engine(fn, state, repeats: int, device: torch.device) -> float:
     return (time.perf_counter() - t0) / repeats
 
 
-def card(device: torch.device) -> dict:
-    """The card's name and power limit (``nvidia-smi``), or the CPU."""
-    if device.type != "cuda":
-        return {"name": "cpu", "power_limit": None}
-    return {"name": torch.cuda.get_device_name(device),
-            "power_limit": common.card(device).rsplit(", ", 1)[1]}
-
-
 def parse_arguments(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ns", type=int, nargs="+",
@@ -344,7 +335,8 @@ def main(argv=None) -> dict:
         print(json.dumps({"fp32_ops_per_s": fp32_ops_per_s,
                           "of_peak": fp32_ops_per_s / PEAK_FP32_FLOPS}),
               flush=True)
-    result = {"device": card(device), "fp32_ops_per_s": fp32_ops_per_s,
+    result = {"device": common.card_fields(device),
+              "fp32_ops_per_s": fp32_ops_per_s,
               "fp32_peak": PEAK_FP32_FLOPS,
               "engine": ("K1 (csrc/metropolis_moves.cu), then a resync "
                          "through K2 (csrc/pair_energy.cu)" if on_card else

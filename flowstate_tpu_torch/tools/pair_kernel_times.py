@@ -44,7 +44,9 @@ from flowstate_tpu_torch.ops import cuda_pair as cp
 from flowstate_tpu_torch.tools.move_kernel_times import (
     emit, launch_ms, single_run_wall,
 )
-from flowstate_tpu_torch.tools.common import card, double_well_spec
+from flowstate_tpu_torch.tools.common import (
+    card, device_events, double_well_spec,
+)
 from flowstate_tpu_torch.tools.n_scaling import chains_for
 
 # (label, N, chains, timed calls, plain version's timed calls or 0)
@@ -67,18 +69,6 @@ def batch(n: int, chains: int):
     pos = np.stack([pos[..., 0] % box.size_x, pos[..., 1] % box.size_y], -1)
     return (SystemSpec.create(n, box, num_wells=0),
             torch.as_tensor(pos, dtype=torch.float32, device="cuda"))
-
-
-def device_events(fn, reps: int) -> list:
-    """The profiler's device events of ``reps`` calls after a warm call."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def production_block(blocks: int = 100) -> dict:

@@ -257,6 +257,10 @@ def test_port_imports_no_jax_flowstate_tpu_or_matplotlib():
             "flowstate_tpu_torch.tools.blocked_depth, "
             "flowstate_tpu_torch.tools.alpha_study, "
             "flowstate_tpu_torch.tools.make_notebooks, "
+            "flowstate_tpu_torch.utils.roofs, "
+            "flowstate_tpu_torch.tools.dp_measure, "
+            "flowstate_tpu_torch.tools.train_roofline, "
+            "flowstate_tpu_torch.tools.scaling_check, "
             "flowstate_tpu_torch.demos, flowstate_tpu_torch.demos.mcmc_demo, "
             "flowstate_tpu_torch.demos.hybrid_algorithm_1_demo, "
             "flowstate_tpu_torch.demos.hybrid_algorithm_2_demo, "

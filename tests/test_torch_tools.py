@@ -35,9 +35,10 @@ from flowstate_tpu import ops as jops
 from flowstate_tpu_torch import mcmc as tmcmc
 from flowstate_tpu_torch.ops.cuda_pair import total_energy_virial_plain
 from flowstate_tpu_torch.tools import (
-    alpha_study, blocked_depth, blocked_wall, ess_check, exact_free_energy,
-    hybrid_n_scaling, move_kernel_check, n_mitigation, pt_mbar_oracle,
-    sampler_bench, sector_check, within_well_bench,
+    alpha_study, blocked_depth, blocked_wall, dp_measure, ess_check,
+    exact_free_energy, hybrid_n_scaling, move_kernel_check, n_mitigation,
+    pt_mbar_oracle, sampler_bench, scaling_check, sector_check,
+    train_roofline, within_well_bench,
 )
 from flowstate_tpu_torch.tools import common
 from flowstate_tpu_torch.tools.common import double_well_spec
@@ -341,7 +342,8 @@ def test_within_well_bench_main(tmp_path, monkeypatch):
 @pytest.mark.parametrize("module", [
     exact_free_energy, move_kernel_check, ess_check, pt_mbar_oracle,
     sampler_bench, within_well_bench, hybrid_n_scaling, n_mitigation,
-    blocked_wall, blocked_depth, alpha_study])
+    blocked_wall, blocked_depth, alpha_study, dp_measure, train_roofline,
+    scaling_check])
 def test_tools_default_to_the_card(module):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main([])
