@@ -1,0 +1,17 @@
+"""The whole round's share of the card's float32 peak: the products of
+the flow's two passes over every chain, counted from the configuration's
+widths, with the move kernel's operations and the pair-energy kernel's
+lower count, over the seconds a round takes in the untraced part of the
+traced run, in percent of 67 TFLOP/s."""
+
+from benchmark import counts
+
+
+def read(ctx):
+    s = ctx.config["system"]
+    n, c = s["num_particles"], ctx.traffic["chains"]
+    wells = len(s["V0_list"])
+    flops = (2 * counts.flow_pass_flops(ctx.config["flow"], 2 * n, c)
+             + counts.k1_ops(c, n, wells, ctx.config["schedule"]["big_move_interval"])
+             + counts.k2_ops(c, n, wells))
+    return 100.0 * flops / ctx.window["unit_s"] / counts.PEAK_FP32_FLOPS
