@@ -65,6 +65,7 @@ from flowstate_tpu_torch.mcmc.cuda_metropolis import (
 from flowstate_tpu_torch.mcmc.hybrid import apply_big_moves, to_box_frame
 from flowstate_tpu_torch.training import TrainConfig, train, train_blocked
 from flowstate_tpu_torch.utils.config import ExperimentConfig, algorithm1_config
+from flowstate_tpu_torch.utils.profiling import annotate
 
 
 def collect_training_samples(config: ExperimentConfig, spec, state):
@@ -100,7 +101,7 @@ def run_testing(config: ExperimentConfig, spec, state, model,
     ``context_fn``'s context (one K2 launch each).  Returns the final
     state and, on the host, the (R, C) accept flags (the blocked moves'
     accepted fraction per round) and (R, C, N, 2) positions after every
-    round."""
+    round.  Each round is a span ``a1.round`` (``utils/profiling.py``)."""
     c, rounds = config.num_chains, config.big_move_attempts
     dev = state.device
     blocked = config.blocked_k > 0
@@ -110,29 +111,30 @@ def run_testing(config: ExperimentConfig, spec, state, model,
     positions = torch.empty((rounds, *state.positions.shape),
                             dtype=state.positions.dtype, device=dev)
     for r in range(rounds):
-        state = run_moves_auto(spec, config.beta, state,
-                               config.big_move_interval)
-        if blocked:
-            for _ in range(bpr):
-                result = blocked_big_moves(
-                    spec, config.beta, state, model, config.half_box,
-                    config.blocked_k, generator, context_fn)
+        with annotate("a1.round"):
+            state = run_moves_auto(spec, config.beta, state,
+                                   config.big_move_interval)
+            if blocked:
+                for _ in range(bpr):
+                    result = blocked_big_moves(
+                        spec, config.beta, state, model, config.half_box,
+                        config.blocked_k, generator, context_fn)
+                    state = result.state
+                    accepted[r] += result.accepted
+                accepted[r] /= bpr
+            else:
+                with torch.no_grad():
+                    prop_flat, log_q_new = model.sample_and_log_prob(
+                        c, generator)
+                u = torch.rand(c, generator=generator, device=dev)
+                result = apply_big_moves(
+                    spec, config.beta, state,
+                    to_box_frame(prop_flat, config.num_particles,
+                                 config.half_box),
+                    log_q_new, model, config.half_box, u)
                 state = result.state
-                accepted[r] += result.accepted
-            accepted[r] /= bpr
-        else:
-            with torch.no_grad():
-                prop_flat, log_q_new = model.sample_and_log_prob(c,
-                                                                 generator)
-            u = torch.rand(c, generator=generator, device=dev)
-            result = apply_big_moves(
-                spec, config.beta, state,
-                to_box_frame(prop_flat, config.num_particles,
-                             config.half_box),
-                log_q_new, model, config.half_box, u)
-            state = result.state
-            accepted[r] = result.accepted
-        positions[r] = state.positions
+                accepted[r] = result.accepted
+            positions[r] = state.positions
     return state, accepted.cpu().numpy(), positions.cpu().numpy()
 
 

@@ -37,6 +37,7 @@ from torch import nn
 from flowstate_tpu_torch.flows.coupling import CircularSplineCoupling
 from flowstate_tpu_torch.flows.distributions import UniformParticle
 from flowstate_tpu_torch.flows.nets import Tree
+from flowstate_tpu_torch.utils.profiling import annotate
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -262,14 +263,18 @@ class NormalizingFlow(nn.Module):
 
     def sample_and_log_prob(self, num_samples: int,
                             generator: Optional[torch.Generator] = None):
-        """Samples and their log q in one forward pass."""
-        z = self._base_sample(num_samples, generator)
-        x, log_det = self.forward_and_log_det(z)
-        return x, self.base.log_prob(z) - log_det
+        """Samples and their log q in one forward pass (a span
+        ``flow.sample_and_log_prob``)."""
+        with annotate("flow.sample_and_log_prob"):
+            z = self._base_sample(num_samples, generator)
+            x, log_det = self.forward_and_log_det(z)
+            return x, self.base.log_prob(z) - log_det
 
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
-        z, log_q = self.inverse_and_log_det(x)
-        return log_q + self.base.log_prob(z)
+        """log q of ``x`` by one inverse pass (a span ``flow.log_prob``)."""
+        with annotate("flow.log_prob"):
+            z, log_q = self.inverse_and_log_det(x)
+            return log_q + self.base.log_prob(z)
 
     def sample_and_log_prob_with_old(self, num_samples: int,
                                      x_old: torch.Tensor,

@@ -50,6 +50,7 @@ from flowstate_tpu_torch.flows.nets import (
 from flowstate_tpu_torch.ops.splines import (
     IDENTITY_DERIVATIVE_CONSTANT, unconstrained_rational_quadratic_spline,
 )
+from flowstate_tpu_torch.utils.profiling import annotate
 
 
 def create_alternating_binary_mask(features: int, even: bool = True
@@ -213,9 +214,11 @@ class CircularSplineCoupling(nn.Module):
 
     def _apply_net(self, net_params: Tree, x: torch.Tensor,
                    context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.context_features:
-            return self.net.apply(net_params, x, context)
-        return self.net.apply(net_params, x)
+        """The conditioner's raw spline parameters (a span ``flow.net``)."""
+        with annotate("flow.net"):
+            if self.context_features:
+                return self.net.apply(net_params, x, context)
+            return self.net.apply(net_params, x)
 
     def _conditional_spline(self, p: Tree, identity_split: torch.Tensor,
                             transform_split: torch.Tensor, inverse: bool,

@@ -43,6 +43,7 @@ from flowstate_tpu_torch.mcmc.metropolis import Observables, Tables
 from flowstate_tpu_torch.mcmc.state import ChainState, resync_energy
 from flowstate_tpu_torch.ops.pair_energy import SystemSpec
 from flowstate_tpu_torch.ops.potentials import well_centers
+from flowstate_tpu_torch.utils.profiling import annotate
 
 LAUNCHES = 0          # kernel launches in this process
 
@@ -364,11 +365,13 @@ def run_moves_plain(spec: SystemSpec, beta: Beta, state: ChainState,
 
 def run_moves_auto(spec: SystemSpec, beta: Beta, state: ChainState,
                    num_moves: int) -> ChainState:
-    """The kernel for a CUDA state, the plain version for a CPU state."""
-    if state.device.type == "cuda":
-        return run_moves_kernel(spec, beta, state, num_moves)
-    if state.device.type == "cpu":
-        return run_moves_plain(spec, beta, state, num_moves)
+    """The kernel for a CUDA state, the plain version for a CPU state; a
+    span ``mcmc.moves``."""
+    with annotate("mcmc.moves"):
+        if state.device.type == "cuda":
+            return run_moves_kernel(spec, beta, state, num_moves)
+        if state.device.type == "cpu":
+            return run_moves_plain(spec, beta, state, num_moves)
     raise ValueError(f"no move engine for device {state.device}")
 
 

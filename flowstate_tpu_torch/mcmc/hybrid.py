@@ -26,6 +26,7 @@ import torch
 
 from flowstate_tpu_torch.mcmc.state import ChainState, batched_energy_virial
 from flowstate_tpu_torch.ops.pair_energy import SystemSpec
+from flowstate_tpu_torch.utils.profiling import annotate
 
 
 class BigMoveResult(NamedTuple):
@@ -86,25 +87,28 @@ def apply_big_moves(spec: SystemSpec, beta: float, state: ChainState,
     """Accept or reject given proposals (C, N, 2) with uniforms ``u``
     (C,).  ``log_q_old`` is computed here by an inverse pass when not
     given.  Adds one to every chain's ``attempts`` and the accepted moves
-    to ``accepts``."""
-    enn, virn = _energies(spec, proposals)
-    if log_q_old is None:
-        log_q_old = model.log_prob(
-            to_centered(state.positions, half_box).to(model.dtype))
-    delta_e = enn - state.energy
-    ratio_log = -beta * delta_e + (log_q_old - log_q_new).to(delta_e.dtype)
-    accept = u < torch.exp(ratio_log)
-    new_state = state.replace(
-        positions=torch.where(accept[:, None, None],
-                              proposals.to(state.positions.dtype),
-                              state.positions).contiguous(),
-        energy=torch.where(accept, enn.to(state.energy.dtype), state.energy),
-        virial=torch.where(accept, virn.to(state.virial.dtype),
-                           state.virial),
-        attempts=state.attempts + 1,
-        accepts=state.accepts + accept.to(state.accepts.dtype),
-    )
-    return BigMoveResult(new_state, accept, ratio_log, enn)
+    to ``accepts``.  A span ``hybrid.verdict``."""
+    with annotate("hybrid.verdict"):
+        enn, virn = _energies(spec, proposals)
+        if log_q_old is None:
+            log_q_old = model.log_prob(
+                to_centered(state.positions, half_box).to(model.dtype))
+        delta_e = enn - state.energy
+        ratio_log = (-beta * delta_e
+                     + (log_q_old - log_q_new).to(delta_e.dtype))
+        accept = u < torch.exp(ratio_log)
+        new_state = state.replace(
+            positions=torch.where(accept[:, None, None],
+                                  proposals.to(state.positions.dtype),
+                                  state.positions).contiguous(),
+            energy=torch.where(accept, enn.to(state.energy.dtype),
+                               state.energy),
+            virial=torch.where(accept, virn.to(state.virial.dtype),
+                               state.virial),
+            attempts=state.attempts + 1,
+            accepts=state.accepts + accept.to(state.accepts.dtype),
+        )
+        return BigMoveResult(new_state, accept, ratio_log, enn)
 
 
 @torch.no_grad()

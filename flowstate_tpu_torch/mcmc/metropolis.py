@@ -24,6 +24,7 @@ from flowstate_tpu_torch.ops.box import wrap_pbc
 from flowstate_tpu_torch.ops.pair_energy import (
     SystemSpec, particle_energy_virial, pressure,
 )
+from flowstate_tpu_torch.utils.profiling import annotate
 
 # Random tables are drawn per chunk of this many moves, as in the JAX engine.
 RNG_CHUNK = 256
@@ -217,12 +218,16 @@ def run_production_with(spec: SystemSpec, beta: float, state: ChainState,
                         move_fn: MoveFn, start_cycle: int = 0
                         ) -> Tuple[ChainState, Observables]:
     """``num_samples`` blocks of ``move_fn(state, sampling_frequency)``,
-    one observable sample after each; leaves come back (C, T, ...)."""
+    one observable sample after each; leaves come back (C, T, ...).  Each
+    block is a span ``mcmc.block``, its sample a span ``mcmc.observe``."""
     samples = []
     for i in range(num_samples):
-        state = move_fn(state, sampling_frequency)
-        samples.append(sample_observables(
-            spec, beta, state, start_cycle + (i + 1) * sampling_frequency))
+        with annotate("mcmc.block"):
+            state = move_fn(state, sampling_frequency)
+            with annotate("mcmc.observe"):
+                samples.append(sample_observables(
+                    spec, beta, state,
+                    start_cycle + (i + 1) * sampling_frequency))
     if not samples:
         raise ValueError("num_samples must be at least 1")
     return state, Observables(**{

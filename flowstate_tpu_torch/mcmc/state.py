@@ -29,6 +29,7 @@ from flowstate_tpu_torch.ops.cuda_pair import (
     total_energy_virial_kernel, total_energy_virial_plain,
 )
 from flowstate_tpu_torch.ops.pair_energy import SystemSpec
+from flowstate_tpu_torch.utils.profiling import annotate
 
 TENSOR_FIELDS = ("positions", "energy", "virial", "max_disp", "attempts",
                  "accepts", "prev_attempts", "prev_accepts")
@@ -77,11 +78,13 @@ def batched_energy_virial(spec: SystemSpec, positions: torch.Tensor,
                           chunk_elems: int = 2 ** 28):
     """Per-chain (energy, virial) of a (C, N, 2) batch: the pair-energy
     kernel for a CUDA batch, its plain version (in chain chunks of at most
-    ``chunk_elems`` pair-tensor elements) for a CPU batch."""
-    if positions.device.type == "cuda":
-        return total_energy_virial_kernel(spec, positions)
-    if positions.device.type == "cpu":
-        return total_energy_virial_plain(spec, positions, chunk_elems)
+    ``chunk_elems`` pair-tensor elements) for a CPU batch; a span
+    ``pair.energy``."""
+    with annotate("pair.energy"):
+        if positions.device.type == "cuda":
+            return total_energy_virial_kernel(spec, positions)
+        if positions.device.type == "cpu":
+            return total_energy_virial_plain(spec, positions, chunk_elems)
     raise ValueError(f"no pair-energy engine for device {positions.device}")
 
 

@@ -27,6 +27,8 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from flowstate_tpu_torch.utils.profiling import annotate
+
 DEFAULT_MIN_BIN_WIDTH = 1e-3
 DEFAULT_MIN_BIN_HEIGHT = 1e-3
 DEFAULT_MIN_DERIVATIVE = 1e-3
@@ -193,17 +195,19 @@ def unconstrained_rational_quadratic_spline(
     min_derivative: float = DEFAULT_MIN_DERIVATIVE,
     circular_tie: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RQ spline on ``[-tail_bound, tail_bound]``, identity outside."""
-    inside = (inputs >= -tail_bound) & (inputs <= tail_bound)
-    derivatives = _pad_derivatives(unnormalized_derivatives, tails,
-                                   circular_tie=circular_tie)
-    spline_out, spline_logdet = rational_quadratic_spline(
-        torch.clamp(inputs, -tail_bound, tail_bound),
-        unnormalized_widths, unnormalized_heights, derivatives,
-        inverse=inverse, left=-tail_bound, right=tail_bound,
-        bottom=-tail_bound, top=tail_bound, min_bin_width=min_bin_width,
-        min_bin_height=min_bin_height, min_derivative=min_derivative)
-    outputs = torch.where(inside, spline_out, inputs)
-    logabsdet = torch.where(inside, spline_logdet,
-                            torch.zeros_like(spline_logdet))
-    return outputs, logabsdet
+    """RQ spline on ``[-tail_bound, tail_bound]``, identity outside (a span
+    ``flow.spline``)."""
+    with annotate("flow.spline"):
+        inside = (inputs >= -tail_bound) & (inputs <= tail_bound)
+        derivatives = _pad_derivatives(unnormalized_derivatives, tails,
+                                       circular_tie=circular_tie)
+        spline_out, spline_logdet = rational_quadratic_spline(
+            torch.clamp(inputs, -tail_bound, tail_bound),
+            unnormalized_widths, unnormalized_heights, derivatives,
+            inverse=inverse, left=-tail_bound, right=tail_bound,
+            bottom=-tail_bound, top=tail_bound, min_bin_width=min_bin_width,
+            min_bin_height=min_bin_height, min_derivative=min_derivative)
+        outputs = torch.where(inside, spline_out, inputs)
+        logabsdet = torch.where(inside, spline_logdet,
+                                torch.zeros_like(spline_logdet))
+        return outputs, logabsdet
