@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``flowstate_tpu_torch/csrc``
-(the Metropolis move kernel K1, the pair-energy kernel K2 and the fp32
-issue-rate probe K3, one ``nvcc`` each, in parallel), holds each against
-its plain PyTorch version (K1 from N=3 to 32,768, on each of its memory
-paths), checks K1's statistics and the exact N=1 free
+(the Metropolis move kernel K1, the pair-energy kernel K2, the fp32
+issue-rate probe K3 and the flows' rational-quadratic spline, one
+``nvcc`` each, in parallel), holds each against its plain PyTorch
+version (K1 from N=3 to 32,768, on each of its memory paths; the spline
+at both big-move round cells' shapes and each tail rule, with its
+launches a round and its time), checks K1's statistics and the exact N=1 free
 energy, runs the MCMC-only experiment at the reference preset through K1
 and K2, times them, runs the NVT single-run CLI at N=1024, 2048 and
 8192, reads the
@@ -152,7 +154,7 @@ def phase_build() -> float:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
     require(set(res.libs) == {"metropolis_moves", "pair_energy",
-                              "issue_rate"},
+                              "issue_rate", "rq_spline"},
             f"built {sorted(res.libs)}")
     phase("2 build", seconds=f"{res.seconds:.2f}",
           libraries=",".join(sorted(res.paths.values())))
@@ -524,6 +526,292 @@ def phase_pair_kernel() -> float:
           launch_table_checked=len(PAIR_TABLE_NS) * len(PAIR_TABLE_CS)
           * len({sms, 132, 16}))
     return err
+
+
+# The spline kernel against its plain version (phase 3c).  Both run in
+# float32 and round in other orders (the softmax's sums, the knots' scan:
+# PyTorch's scan kernel against the kernel's shuffle scan), so neither is
+# the truth: each is held against the plain version in float64 on the same
+# parameters.  An element's rounding error is its bin's slope times an ulp
+# of its input or knots, and the steepest bins of these parameters (a
+# height 120 times its width, end slopes near 0.01) magnify it a
+# thousandfold at the knots, so the largest error of either version is a
+# draw from a few such elements: the kernel's mean error over the rows may
+# be at most SPLINE_MEAN_X times the plain version's, its largest
+# SPLINE_MAX_X times the plain version's largest, or the floors below (2
+# and 8 ulps of a bound of 5 for an output, 1e-5 a dimension for a row's
+# log-det) where those are larger.  A fault of the kernel (a wrong bin,
+# slope, knot or tail) moves outputs by a bin's width, some 0.1.
+SPLINE_MEAN_X = 2.0
+SPLINE_MAX_X = 8.0
+SPLINE_OUT_MEAN_FLOOR = 1e-6
+SPLINE_OUT_FLOOR = 4e-6
+SPLINE_LD_FLOOR = 1e-5
+# The kernel's bin of an element is the bin of the output side's knots
+# its output lies in (the map takes bin k onto bin k; an output within
+# rounding of a knot lies in both).  It may differ from the plain
+# version's search only where the input lies within rounding of a knot:
+# the knots are sums of up to 32 bin sizes of order 1 / bins times the
+# interval 2 tail_bound, each scan within some 16 ulps of the bound of the
+# exact sum
+SPLINE_KNOT_TOL = 16 * 2.0 ** -23
+# (label, B, D, bins, tails, circular_tie, scale, stride-0 parameters):
+# the two round cells' conditional and unconditional calls (A1: 65,536 x 3,
+# N=8: 16,384 x 8, 32 bins, every dimension circular, 1/sqrt(256)), then
+# the tail rules at 8 bins
+SPLINE_CASES = (
+    ("a1_cond", 65536, 3, 32, "circ", True, 1 / 16, False),
+    ("a1_uncond", 65536, 3, 32, "circ", True, 1.0, True),
+    ("n8_cond", 16384, 8, 32, "circ", True, 1 / 16, False),
+    ("n8_uncond", 16384, 8, 32, "circ", True, 1.0, True),
+    ("linear_8", 8192, 4, 8, "linear", True, 0.5, False),
+    ("circular_8", 8192, 4, 8, "circular", True, 0.5, False),
+    ("mixed_8", 8192, 4, 8, "mixed", True, 0.5, False),
+    ("mixed_8_untied", 8192, 4, 8, "mixed", False, 0.5, True),
+    ("circ_32_untied", 8192, 4, 32, "circ", False, 1 / 16, False),
+)
+
+
+def spline_inputs(b: int, d: int, bins: int, tails, scale: float,
+                  stride0: bool, hb: float, inverse: bool, seed: int):
+    """(inputs, widths, heights, derivatives) on the card: the parameters
+    as the couplings hand them (slices of a (B, D, 3 bins + 1) raw output,
+    or (D, ...) expanded over the batch), N(0, 1.5) (the widths and
+    heights after the scale, as the derivatives are); a
+    third of the inputs on a knot of their row's direction, a third
+    within 1e-6 of one, the rest uniform over 1.1 the bound with both
+    bounds and points outside."""
+    import torch
+
+    from flowstate_tpu_torch.ops import splines as sp
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    slots = {"linear": bins - 1, "circular": bins}.get(
+        tails if isinstance(tails, str) else None, bins + 1)
+    rows = 1 if stride0 else b
+    raw = torch.randn((rows, d, 2 * bins + slots), generator=g,
+                      device=DEVICE) * 1.5
+    raw[..., :2 * bins] /= scale
+    w, h, dd = raw[..., :bins], raw[..., bins:2 * bins], raw[..., 2 * bins:]
+    if stride0:
+        w, h, dd = (t[0].expand(b, d, t.shape[-1]) for t in (w, h, dd))
+    knots, _ = sp._knots((h if inverse else w) * scale, 1e-3, -hb, hb)
+    pick = torch.randint(0, bins + 1, (b, d, 1), generator=g, device=DEVICE)
+    on = torch.gather(knots, 2, pick)[..., 0]
+    x = (torch.rand((b, d), generator=g, device=DEVICE) * 2 - 1) * 1.1 * hb
+    third = b // 3
+    x[:third] = on[:third]
+    near = torch.rand((b, d), generator=g, device=DEVICE) * 2e-6 - 1e-6
+    x[third:2 * third] = on[third:2 * third] + near[third:2 * third]
+    x[2 * third, 0], x[2 * third + 1, 0] = -hb, hb
+    x[2 * third + 2, 0], x[2 * third + 3, 0] = -1.5 * hb, 1.5 * hb
+    return x, w, h, dd
+
+
+def spline_plain(x, w, h, d, inverse, tails, tie, scale, hb):
+    """The plain composition: outputs, per-row log-dets, each element's
+    bin (the plain version's search on its own knots) and the knots of the
+    input's side and of the output's."""
+    import torch
+
+    from flowstate_tpu_torch.ops import splines as sp
+
+    out, ld = sp.unconstrained_rational_quadratic_spline(
+        x, w * scale, h * scale, d, inverse=inverse, tails=tails,
+        tail_bound=hb, circular_tie=tie)
+    knots, _ = sp._knots((h if inverse else w) * scale, 1e-3, -hb, hb)
+    knots_out, _ = sp._knots((w if inverse else h) * scale, 1e-3, -hb, hb)
+    bins = sp._searchsorted(knots, torch.clamp(x, -hb, hb))
+    return out, ld.sum(-1), bins, (knots, knots_out)
+
+
+def spline_kernel_args(inverse, tails, tie, scale, hb) -> dict:
+    from flowstate_tpu_torch.ops import splines as sp
+
+    return dict(inverse=inverse, tails=tails, tail_bound=hb, scale=scale,
+                circular_tie=tie, min_bin_width=sp.DEFAULT_MIN_BIN_WIDTH,
+                min_bin_height=sp.DEFAULT_MIN_BIN_HEIGHT,
+                min_derivative=sp.DEFAULT_MIN_DERIVATIVE, eps=sp.SEARCH_EPS,
+                identity_derivative=sp.IDENTITY_DERIVATIVE_CONSTANT)
+
+
+def spline_bytes(b: int, d: int, bins: int, slots: int, stride0: bool,
+                 itemsize: int = 4) -> int:
+    """What a call must move: inputs and outputs (B, D), log-dets (B,),
+    the parameters once (B x D, or D rows of them when broadcast)."""
+    rows = d if stride0 else b * d
+    return itemsize * (2 * b * d + b + rows * (2 * bins + slots))
+
+
+def spline_round_launches(flow, chains: int, seed: int) -> int:
+    """Spline launches in one no-grad round of ``flow``'s two passes
+    (``sample_and_log_prob`` and ``log_prob``) at ``chains``."""
+    import torch
+
+    from flowstate_tpu_torch.ops import cuda_spline
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    with torch.no_grad():
+        x, _ = flow.sample_and_log_prob(chains, g)
+        before = cuda_spline.LAUNCHES
+        flow.sample_and_log_prob(chains, g)
+        flow.log_prob(x)
+    torch.cuda.synchronize()
+    return cuda_spline.LAUNCHES - before
+
+
+def phase_spline_kernel(card: str, cases=SPLINE_CASES, hb: float = 5.0,
+                        round_chains: dict = None) -> dict:
+    """The spline kernel (csrc/rq_spline.cu) against its plain version in
+    float32 at both round cells' shapes and at each tail rule, forward and
+    inverse, on knots, near them and outside the bound, each held against
+    the plain version in float64; the bins its outputs lie in; its
+    launches in a round of A1's and the N=8 transformer's flows (60) and
+    in a grad-enabled training step (none); its time by CUDA events beside
+    its bound (bytes at 3.35 TB/s) and the plain version's."""
+    import torch
+
+    from flowstate_tpu_torch.entry import A1_FLOW
+    from flowstate_tpu_torch.flows import build_circular_flow
+    from flowstate_tpu_torch.ops import cuda_spline
+    from flowstate_tpu_torch.ops import splines as sp
+    from flowstate_tpu_torch.training import (
+        TrainConfig, make_optimizer, make_train_step,
+    )
+    from flowstate_tpu_torch.utils.roofs import PEAK_BYTES_PER_S
+
+    round_chains = round_chains or {"a1": 65536, "n8": 16384}
+    worst = {"out_gap": 0.0, "ld_gap": 0.0, "bin_share": 0.0}
+    times = {}
+    for i, (label, b, d, bins, rule, tie, scale, stride0) in enumerate(cases):
+        tails = {"circ": ["circular"] * d,
+                 "mixed": ["circular", "linear"] * (d // 2)}.get(rule, rule)
+        for inverse in (False, True):
+            x, w, h, dd = spline_inputs(b, d, bins, tails, scale, stride0,
+                                        hb, inverse, seed=100 + i)
+            args = spline_kernel_args(inverse, tails, tie, scale, hb)
+            before = cuda_spline.LAUNCHES
+            k_out, k_ld = cuda_spline.rq_spline_kernel(x, w, h, dd, **args)
+            torch.cuda.synchronize()
+            require(cuda_spline.LAUNCHES == before + 1, "launch count")
+            p_out, p_ld, p_bins, (knots, knots_out) = spline_plain(
+                x, w, h, dd, inverse, tails, tie, scale, hb)
+            t_out, t_ld, _, _ = spline_plain(
+                x.double(), w.double(), h.double(), dd.double(), inverse,
+                tails, tie, scale, hb)
+            # rows where the plain float32 version is finite (it gave NaN
+            # log-dets on some knot inputs of the inverse; the kernel must
+            # be finite everywhere)
+            ok = torch.isfinite(p_ld) & torch.isfinite(p_out).all(-1)
+            plain_nonfinite = int((~ok).sum())
+            gap = ((k_out - p_out)[ok].abs().max().item(),
+                   (k_ld - p_ld)[ok].abs().max().item())
+            # the kernel's bin: that of its output, where the output is off
+            # its side's knots (an output on a knot lies in both bins)
+            inside = x.abs() <= hb
+            yc = torch.clamp(k_out, -hb, hb)
+            tol = SPLINE_KNOT_TOL * hb
+            differ = ((sp._searchsorted(knots_out, yc) != p_bins) & inside
+                      & ((knots_out - yc[..., None]).abs().min(-1).values
+                         > tol))
+            xc = torch.clamp(x, -hb, hb)
+            near = (knots - xc[..., None]).abs().min(-1).values
+            far_flips = int((differ & (near > tol)).sum())
+            share = float(differ.float().mean())
+            del yc, xc, near, differ
+            tag = f"{label}{' inverse' if inverse else ''}"
+            require(bool(torch.isfinite(k_out).all()
+                         and torch.isfinite(k_ld).all()),
+                    f"{tag}: the kernel's output is not finite")
+            # on and near the knots (the first two thirds of the rows),
+            # then the uniform inputs
+            for part, rows in (("knots", slice(0, 2 * (b // 3))),
+                               ("uniform", slice(2 * (b // 3), b))):
+                errs = {}
+                for name, k_v, p_v, t_v in (("outputs", k_out, p_out, t_out),
+                                            ("log-dets", k_ld, p_ld, t_ld)):
+                    sel = ok[rows]
+                    ek = (k_v[rows][sel].double() - t_v[rows][sel]).abs()
+                    ep = (p_v[rows][sel].double() - t_v[rows][sel]).abs()
+                    errs[name] = [float(v) for v in (ek.mean(), ep.mean(),
+                                                     ek.max(), ep.max())]
+                print(f"  {tag}, {part}: off float64 (mean, largest), kernel"
+                      f" / plain: " + "; ".join(
+                          f"{n} {e[0]:.3g}, {e[2]:.3g} / {e[1]:.3g}, "
+                          f"{e[3]:.3g}" for n, e in errs.items()), flush=True)
+                for name, (floor_mean, floor_max) in (
+                        ("outputs", (SPLINE_OUT_MEAN_FLOOR, SPLINE_OUT_FLOOR)),
+                        ("log-dets", (SPLINE_LD_FLOOR * d,) * 2)):
+                    mk, mp, xk, xp = errs[name]
+                    require(mk <= max(SPLINE_MEAN_X * mp, floor_mean)
+                            and xk <= max(SPLINE_MAX_X * xp, floor_max),
+                            f"{tag}, {part}: {name} off float64 by {mk} "
+                            f"(mean), {xk} (largest) against the plain "
+                            f"version's {mp}, {xp}")
+            print(f"  {tag}: gaps to the plain version: outputs {gap[0]:.3g},"
+                  f" log-dets {gap[1]:.3g}; bins differ {share:.3g} "
+                  f"({far_flips} away from a knot); plain non-finite rows "
+                  f"{plain_nonfinite}", flush=True)
+            require(plain_nonfinite <= b // 1000,
+                    f"{tag}: {plain_nonfinite} rows of the plain version "
+                    f"are not finite")
+            worst["plain_nonfinite_rows"] = (
+                worst.get("plain_nonfinite_rows", 0) + plain_nonfinite)
+            require(far_flips == 0, f"{tag}: {far_flips} bins differ away "
+                                    f"from a knot")
+            outside = ~inside
+            require(bool(torch.equal(k_out[outside], x[outside])),
+                    f"{tag}: not the identity outside the bound")
+            worst["out_gap"] = max(worst["out_gap"], gap[0])
+            worst["ld_gap"] = max(worst["ld_gap"], gap[1])
+            worst["bin_share"] = max(worst["bin_share"], share)
+            if label.startswith(("a1", "n8")):
+                slots = dd.shape[-1]
+                bound = spline_bytes(b, d, bins, slots, stride0) \
+                    / PEAK_BYTES_PER_S * 1e3
+                ms = cuda_ms(lambda: cuda_spline.rq_spline_kernel(
+                    x, w, h, dd, **args), 200)
+                plain_ms = cuda_ms(lambda: spline_plain(
+                    x, w, h, dd, inverse, tails, tie, scale, hb)[:2], 10)
+                times[tag.replace(" ", "_")] = {
+                    "ms": ms, "bound_ms": bound, "plain_ms": plain_ms}
+            del x, w, h, dd
+    # launches: 60 a round of either cell's flow, none from a training step
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(7)
+    launches = {}
+    a1 = build_circular_flow(3, 2, hb, generator=g, device=DEVICE, **A1_FLOW)
+    launches["a1"] = spline_round_launches(a1, round_chains["a1"], 8)
+    n8 = build_circular_flow(8, 2, hb, generator=g, device=DEVICE,
+                             net_type="transformer", **A1_FLOW)
+    launches["n8"] = spline_round_launches(n8, round_chains["n8"], 9)
+    del n8
+    cfg = TrainConfig(batch_size=512)
+    opt = make_optimizer(cfg)
+    step = make_train_step(a1, cfg, opt)
+    opt_state = opt.init(list(a1.parameters()))
+    data = (torch.rand((512, 6), generator=g, device=DEVICE) * 2 - 1) * hb
+    before = cuda_spline.LAUNCHES
+    _, loss = step(opt_state, data)
+    torch.cuda.synchronize()
+    launches["train_step"] = cuda_spline.LAUNCHES - before
+    require(launches == {"a1": 60, "n8": 60, "train_step": 0}
+            and bool(torch.isfinite(loss)), f"spline launches {launches}")
+    for tag, t in times.items():
+        us, bound_us = t["ms"] * 1e3, t["bound_ms"] * 1e3
+        print(f"  {tag}: {us:.2f} us (bound {bound_us:.2f} us, "
+              f"{100 * bound_us / us:.1f}%), plain "
+              f"{t['plain_ms'] * 1e3:.1f} us", flush=True)
+    phase("3c spline kernel vs plain", card=f"'{card}'",
+          max_out_gap=f"{worst['out_gap']:.3g}",
+          max_logdet_gap=f"{worst['ld_gap']:.3g}",
+          max_bin_share=f"{worst['bin_share']:.3g}",
+          plain_nonfinite_rows=worst["plain_nonfinite_rows"],
+          launches_a1_round=launches["a1"], launches_n8_round=launches["n8"],
+          launches_train_step=launches["train_step"])
+    return {"worst": worst, "times": times, "launches": launches}
 
 
 def phase_statistics(num_chains: int = 16384, eq_steps: int = 5000,
@@ -1265,8 +1553,9 @@ def per_call(fn, reps: int = 2) -> dict:
 def phase_flow(card: str, chains: int = 16384, batch: int = 512,
                check_points: int = 2048) -> dict:
     """A1's flow on the card at K=15, hidden 256, 32 bins, N=3: log q at
-    identity init, the round trip, log q against the CPU's float64 on
-    seeded weights, then the times of the flow's calls at 16,384 chains
+    identity init (2K spline launches), the round trip, log q against the
+    CPU's float64 on seeded weights, then the times of the flow's calls at
+    16,384 chains
     and of a training step at batch 512, with device kernels per call and
     the step's peak memory."""
     import math
@@ -1279,6 +1568,7 @@ def phase_flow(card: str, chains: int = 16384, batch: int = 512,
     from flowstate_tpu_torch.mcmc import (
         init_alternating_wells, init_chain_state, nf_big_moves,
     )
+    from flowstate_tpu_torch.ops import cuda_spline as cs
     from flowstate_tpu_torch.training import (
         TrainConfig, make_optimizer, make_train_step,
     )
@@ -1296,7 +1586,11 @@ def phase_flow(card: str, chains: int = 16384, batch: int = 512,
     x = (torch.rand((chains, 6), generator=gen(2), device=DEVICE)
          * (2 * hb) - hb)
     with torch.no_grad():
+        before = cs.LAUNCHES
         lp_id = flow.log_prob(x)
+        log_prob_splines = cs.LAUNCHES - before
+    require(log_prob_splines == spline_launches(A1_FLOW["K"], 1),
+            f"log_prob launched {log_prob_splines} splines")
     want = -6 * math.log(2 * hb)
     id_err = float((lp_id - want).abs().max())
     require(id_err <= 1e-4, f"identity-init log q off {want} by {id_err}")
@@ -1364,6 +1658,7 @@ def phase_flow(card: str, chains: int = 16384, batch: int = 512,
             for k in v), flush=True)
     phase("12 flow", card=f"'{card}'", chains=chains, batch=batch,
           identity_log_q_err=f"{id_err:.3g}", round_trip_err=f"{trip_err:.3g}",
+          log_prob_spline_launches=log_prob_splines,
           log_q_vs_float64_err=f"{lp_err:.3g}",
           log_q_vs_float64_rel=f"{lp_rel:.3g}",
           **{f"{k}_ms": f"{v['ms']:.3f}" for k, v in out.items()},
@@ -1377,22 +1672,40 @@ A1_SMOKE = dict(num_chains=64, epochs=2, big_move_attempts=100,
                 big_move_interval=150, num_samples_for_analysis=5000)
 
 
+def spline_launches(K: int, passes: int) -> int:
+    """The spline kernel's launches in ``passes`` float32 no-grad passes
+    of a coupling flow of K layers on the card: a conditional and an
+    unconditional spline a layer; a paired pass (a big move's proposal
+    and the current point's log q) counts two.  Training records a
+    gradient and launches none."""
+    return 2 * K * passes
+
+
 def a1_schedule(config):
-    """K1 and K2 launches of ``algorithm1.run``: K1 the equilibration
-    blocks, one per Phase B sample, one per round; K2 the initial
-    energies, one resync per sample, one per round."""
+    """K1, K2 and spline launches of ``algorithm1.run``: K1 the
+    equilibration blocks, one per Phase B sample, one per round; K2 the
+    initial energies, one resync per sample, one per round's big move (or
+    its N // k blocked moves); the splines two passes a big move, and for
+    the global flow one more, Phase C's evaluation sample."""
     eq_blocks, eq_rest = divmod(config.equilibration_steps,
                                 config.adjusting_frequency)
     samples = config.initial_training_num_samples // config.num_chains
     rounds = config.big_move_attempts
+    if config.blocked_k > 0:
+        moves = max(1, config.num_particles // config.blocked_k)
+        splines = spline_launches(config.blocked_K, 2 * moves * rounds)
+    else:
+        moves = 1
+        splines = spline_launches(config.K, 2 * rounds + 1)
     return (eq_blocks + (1 if eq_rest else 0) + samples + rounds,
-            1 + samples + rounds)
+            1 + samples + moves * rounds, splines)
 
 
 def phase_algorithm1(card: str, **overrides) -> dict:
     """Algorithm 1 end to end through ``algorithm1.run`` at full width:
-    K1 and K2 launch counts against the schedule (one of each per testing
-    round), a finite final loss below the uniform flow's, big-move
+    K1, K2 and spline launch counts against the schedule (one K1 and one
+    K2 per testing round, 4K splines), a finite final loss below the
+    uniform flow's, big-move
     acceptance above 0, the JAX driver's result files without
     matplotlib, and each phase's wall time."""
     import numpy as np
@@ -1401,6 +1714,7 @@ def phase_algorithm1(card: str, **overrides) -> dict:
     from flowstate_tpu_torch.experiments import algorithm1
     from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
     from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.ops import cuda_spline as cs
     from flowstate_tpu_torch.utils.config import algorithm1_config
 
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out:
@@ -1409,12 +1723,12 @@ def phase_algorithm1(card: str, **overrides) -> dict:
                                    **{**A1_SMOKE, **overrides})
         rounds = config.big_move_attempts
         expected = a1_schedule(config)
-        cm.LAUNCHES = cp.LAUNCHES = 0
+        cm.LAUNCHES = cp.LAUNCHES = cs.LAUNCHES = 0
         t0 = time.perf_counter()
         result = algorithm1.run(config, device=DEVICE)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = (cm.LAUNCHES, cp.LAUNCHES)
+        launches = (cm.LAUNCHES, cp.LAUNCHES, cs.LAUNCHES)
         d = result["directory"]
         nf = os.path.join("training_rounds", "initial_training_round")
         needed = ["params.json", "experiment.log", "metrics.jsonl",
@@ -1442,8 +1756,8 @@ def phase_algorithm1(card: str, **overrides) -> dict:
                                        "mc_run_testing_configs.npy"))
         drawn = os.path.exists(os.path.join(d, "avg_free_energy.png"))
     require(launches == expected,
-            f"A1 launched K1, K2 {launches} times, schedule implies "
-            f"{expected}")
+            f"A1 launched K1, K2, splines {launches} times, schedule "
+            f"implies {expected}")
     loss = result["final_loss"]
     acc = result["big_move_acceptance"]
     # the loss leaves out the base's log q: the uniform flow's is 0, its
@@ -1462,13 +1776,14 @@ def phase_algorithm1(card: str, **overrides) -> dict:
           epochs=config.epochs, rounds=rounds,
           launches_k1=launches[0], expected_k1=expected[0],
           launches_k2=launches[1], expected_k2=expected[1],
+          launches_spline=launches[2], expected_spline=expected[2],
           final_loss=f"{loss:.4f}", nll=f"{loss + 6 * np.log(10.0):.4f}",
           acceptance=f"{acc:.4f}",
           delta_f=f"{result['delta_f_mean']:.4f}+-{result['delta_f_sem']:.4f}",
           **{f"phase_{k}_s": f"{v:.2f}" for k, v in ph.items()},
           figures_drawn=drawn, wall_s=f"{wall_s:.2f}")
     return {"launches": launches[0], "launches_k2": launches[1],
-            "phase_s": ph}
+            "launches_spline": launches[2], "phase_s": ph}
 
 
 # Phase 14: Algorithm 2 at the reference's full width (100 chains, K=23,
@@ -1477,21 +1792,28 @@ def phase_algorithm1(card: str, **overrides) -> dict:
 A2_CYCLES, A2_INTERVAL = 20, 5
 
 
-def a2_schedule(config, cycles: int, resumed: bool = False):
-    """K1 and K2 launches of ``cycles`` A2 cycles: K1 the equilibration
-    blocks, one per initial sample (none on resume) and one per sample of
-    a cycle; K2 the initial energies, one resync per sample, one big
-    move's proposals per cycle (N // k blocked moves' with blocked_k)."""
+def a2_schedule(config, cycles: int, resumed: bool = False,
+                evaluations: int = 0):
+    """K1, K2 and spline launches of ``cycles`` A2 cycles: K1 the
+    equilibration blocks, one per initial sample (none on resume) and one
+    per sample of a cycle; K2 the initial energies, one resync per sample,
+    one big move's proposals per cycle (N // k blocked moves' with
+    blocked_k); the splines two passes a big move and one an evaluation
+    sample (the global flow's, one a checkpoint: ``evaluations``)."""
     eq_blocks, eq_rest = divmod(config.equilibration_steps,
                                 config.adjusting_frequency)
     c = config.num_chains
     initial = 0 if resumed else max(1, config.initial_training_num_samples
                                     // c)
     per = max(1, config.update_num_samples // c)
-    moves = (max(1, config.num_particles // config.blocked_k)
-             if config.blocked_k > 0 else 1)
+    if config.blocked_k > 0:
+        moves = max(1, config.num_particles // config.blocked_k)
+        splines = spline_launches(config.blocked_K, 2 * moves * cycles)
+    else:
+        moves = 1
+        splines = spline_launches(config.K, 2 * cycles + evaluations)
     return (eq_blocks + (1 if eq_rest else 0) + initial + per * cycles,
-            1 + initial + (per + moves) * cycles)
+            1 + initial + (per + moves) * cycles, splines)
 
 
 def same_state(a, b) -> bool:
@@ -1517,9 +1839,10 @@ def same_flow(a, b) -> bool:
 def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
                      interval: int = A2_INTERVAL, **overrides) -> dict:
     """Algorithm 2 through ``algorithm2.run`` at full width, four times:
-    (a) the host loop, ``cycles`` cycles: K1 and K2 launches against the
-    schedule, checkpoints every ``2 interval`` cycles, the JAX driver's
-    files without matplotlib, finite losses, an acceptance in (0, 1];
+    (a) the host loop, ``cycles`` cycles: K1, K2 and spline launches
+    against the schedule, checkpoints every ``2 interval`` cycles, the
+    files the JAX experiment writes, without matplotlib, finite losses, an
+    acceptance in (0, 1];
     (b) ``--resume`` in the same directory for 10 cycles more: the restored
     chain state and flow bit-equal to what (a) saved and ended with;
     (c) the fused runner with ``freeze_after = cycles / 2``: the flow
@@ -1536,6 +1859,7 @@ def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
     from flowstate_tpu_torch.flows import build_circular_flow, params_from_jax
     from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
     from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.ops import cuda_spline as cs
     from flowstate_tpu_torch.training import make_optimizer, make_train_step
     from flowstate_tpu_torch.training.cycles import (
         make_fused_cycles, train_config,
@@ -1546,14 +1870,21 @@ def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
     from flowstate_tpu_torch.utils.config import algorithm2_config
 
     def timed(**kw):
-        cm.LAUNCHES = cp.LAUNCHES = 0
+        cm.LAUNCHES = cp.LAUNCHES = cs.LAUNCHES = 0
         t0 = time.perf_counter()
         res = algorithm2.run(device=DEVICE, **kw)
         torch.cuda.synchronize()
-        return res, (cm.LAUNCHES, cp.LAUNCHES), time.perf_counter() - t0
+        return (res, (cm.LAUNCHES, cp.LAUNCHES, cs.LAUNCHES),
+                time.perf_counter() - t0)
 
     def steps(directory):
         return sorted(os.listdir(os.path.join(directory, "checkpoints")))
+
+    def evaluations(start: int, end: int) -> int:
+        """The host loop's evaluation samples in cycles start + 1 ... end:
+        one a checkpoint, every 2 interval cycles."""
+        return sum(1 for s in range(start + 1, end + 1)
+                   if s % (2 * interval) == 0)
 
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out:
         def cfg(name, n, **kw):
@@ -1574,12 +1905,13 @@ def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
                 num_blocks=config.n_blocks, device=DEVICE)
 
         a, launches, wall_a = timed(config=config)
-        expected = a2_schedule(config, cycles)
-        require(launches == expected,
-                f"A2 launched K1, K2 {launches} times, schedule implies "
-                f"{expected}")
-        d = a["directory"]
         saves = list(range(2 * interval, cycles + 1, 2 * interval))
+        expected = a2_schedule(config, cycles,
+                               evaluations=evaluations(0, cycles))
+        require(launches == expected,
+                f"A2 launched K1, K2, splines {launches} times, schedule "
+                f"implies {expected}")
+        d = a["directory"]
         require(steps(d) == [f"step_{s:08d}" for s in saves],
                 f"A2 checkpoints {steps(d)}")
         needed = ["params.json", "experiment.log", "metrics.jsonl",
@@ -1620,7 +1952,8 @@ def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
                 "the restored flow differs from the saved one")
         b, launches_b, wall_b = timed(config=cfg("chip_smoke_a2", cycles + 10),
                                       resume=True)
-        expected_b = a2_schedule(config, 10, resumed=True)
+        expected_b = a2_schedule(config, 10, resumed=True,
+                                 evaluations=evaluations(cycles, cycles + 10))
         require(b["start_cycle"] == cycles and b["cycles_run"] == 10
                 and launches_b == expected_b,
                 f"resume: start {b['start_cycle']}, {b['cycles_run']} "
@@ -1632,14 +1965,15 @@ def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
         c_cfg = cfg("chip_smoke_a2_fused", cycles)
         f, launches_c, wall_c = timed(config=c_cfg, fused=True,
                                       freeze_after=freeze)
-        require(launches_c == expected,
-                f"fused A2 launched {launches_c}, schedule implies "
-                f"{expected}")
         edges, edge = [], 0          # chunks end at the freeze too
         while edge < cycles:
             n = min(2 * interval, cycles - edge)
             edge += min(n, freeze - edge) if edge < freeze else n
             edges.append(edge)
+        expected_c = a2_schedule(config, cycles, evaluations=len(edges))
+        require(launches_c == expected_c,
+                f"fused A2 launched {launches_c}, schedule implies "
+                f"{expected_c}")
         require(steps(f["directory"]) == [f"step_{s:08d}" for s in edges],
                 f"fused checkpoints {steps(f['directory'])}, chunk edges "
                 f"{edges}")
@@ -1659,7 +1993,12 @@ def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
                 "a frozen chunk trained the flow or gave finite losses")
 
         # (d) the mixed loss on the card
-        m, _, wall_d = timed(config=cfg("chip_smoke_a2_alpha", 3, alpha=0.9))
+        d_cfg = cfg("chip_smoke_a2_alpha", 3, alpha=0.9)
+        m, launches_d, wall_d = timed(config=d_cfg)
+        expected_d = a2_schedule(d_cfg, 3, evaluations=evaluations(0, 3))
+        require(launches_d == expected_d,
+                f"alpha=0.9 A2 launched {launches_d}, schedule implies "
+                f"{expected_d}")
         g = torch.Generator(device=DEVICE)
         g.manual_seed(7)
         rkld, _ = m["model"].reverse_kld(256, g)
@@ -1698,9 +2037,11 @@ def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
           hidden=config.hidden_units, bins=config.num_bins, cycles=cycles,
           launches_k1=launches[0], expected_k1=expected[0],
           launches_k2=launches[1], expected_k2=expected[1],
+          launches_spline=launches[2], expected_spline=expected[2],
           acceptance=f"{acc:.4f}", final_loss=f"{losses[-1]:.4f}",
-          resumed_launches=f"{launches_b[0]},{launches_b[1]}",
-          fused_launches=f"{launches_c[0]},{launches_c[1]}",
+          resumed_launches=",".join(map(str, launches_b)),
+          fused_launches=",".join(map(str, launches_c)),
+          alpha09_launches=",".join(map(str, launches_d)),
           fused_acceptance=f"{f['big_move_acceptance']:.4f}",
           alpha09_loss=f"{m['loss_per_cycle'][-1]:.4f}",
           reverse_kld=f"{float(rkld):.4f}",
@@ -1713,6 +2054,10 @@ def phase_algorithm2(card: str, cycles: int = A2_CYCLES,
           wall_host_s=f"{wall_a:.2f}", wall_resume_s=f"{wall_b:.2f}",
           wall_fused_s=f"{wall_c:.2f}", wall_alpha_s=f"{wall_d:.2f}")
     return {"launches": launches[0], "launches_k2": launches[1],
+            "launches_spline": {"host": launches[2],
+                                "resumed": launches_b[2],
+                                "fused": launches_c[2],
+                                "alpha": launches_d[2]},
             "ms_per_cycle": ms, "train_step": train, "peak": peak}
 
 
@@ -1795,6 +2140,7 @@ def phase_blocked(card: str, chains: int = 16384, a1: dict = None,
     )
     from flowstate_tpu_torch.mcmc.initialise import init_split_wells
     from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.ops import cuda_spline as cs
     from flowstate_tpu_torch.training import (
         Adam, blocked_pairs, make_blocked_train_step,
     )
@@ -1919,22 +2265,16 @@ def phase_blocked(card: str, chains: int = 16384, a1: dict = None,
         # (b) Algorithm 1 -----------------------------------------------
         cfg1 = algorithm1_config(experiment_id="chip_smoke_blocked_a1",
                                  output_dir=out, **(a1 or BLOCKED_A1))
-        bpr = max(1, cfg1.num_particles // cfg1.blocked_k)
-        eq_blocks, eq_rest = divmod(cfg1.equilibration_steps,
-                                    cfg1.adjusting_frequency)
-        samples = cfg1.initial_training_num_samples // cfg1.num_chains
-        rounds = cfg1.big_move_attempts
-        expected1 = (eq_blocks + (1 if eq_rest else 0) + samples + rounds,
-                     1 + samples + bpr * rounds)
-        cm.LAUNCHES = cp.LAUNCHES = 0
+        expected1 = a1_schedule(cfg1)
+        cm.LAUNCHES = cp.LAUNCHES = cs.LAUNCHES = 0
         t0 = time.perf_counter()
         r1 = algorithm1.run(cfg1, device=DEVICE)
         torch.cuda.synchronize()
         wall1 = time.perf_counter() - t0
-        launches1 = (cm.LAUNCHES, cp.LAUNCHES)
+        launches1 = (cm.LAUNCHES, cp.LAUNCHES, cs.LAUNCHES)
         require(launches1 == expected1,
-                f"blocked A1 launched K1, K2 {launches1} times, schedule "
-                f"implies {expected1}")
+                f"blocked A1 launched K1, K2, splines {launches1} times, "
+                f"schedule implies {expected1}")
         with open(os.path.join(out, "evidence",
                                "chip_smoke_blocked_a1_data.json")) as f:
             ev1 = json.load(f)
@@ -1954,16 +2294,16 @@ def phase_blocked(card: str, chains: int = 16384, a1: dict = None,
         cfg2 = algorithm2_config(experiment_id="chip_smoke_blocked_a2",
                                  output_dir=out, num_training_cycles=a2_cycles,
                                  **(a2 or BLOCKED_A2))
-        cm.LAUNCHES = cp.LAUNCHES = 0
+        cm.LAUNCHES = cp.LAUNCHES = cs.LAUNCHES = 0
         t0 = time.perf_counter()
         r2 = algorithm2.run(cfg2, device=DEVICE)
         torch.cuda.synchronize()
         wall2 = time.perf_counter() - t0
-        launches2 = (cm.LAUNCHES, cp.LAUNCHES)
+        launches2 = (cm.LAUNCHES, cp.LAUNCHES, cs.LAUNCHES)
         expected2 = a2_schedule(cfg2, a2_cycles)
         require(launches2 == expected2,
-                f"blocked A2 launched K1, K2 {launches2} times, schedule "
-                f"implies {expected2}")
+                f"blocked A2 launched K1, K2, splines {launches2} times, "
+                f"schedule implies {expected2}")
         acc2 = r2["big_move_acceptance"]
         require(0.0 < acc2 <= 1.0
                 and bool(np.isfinite(r2["loss_per_cycle"]).all()),
@@ -1975,10 +2315,10 @@ def phase_blocked(card: str, chains: int = 16384, a1: dict = None,
         for name in os.listdir(ckpts):
             if int(name[5:]) > mid:
                 shutil.rmtree(os.path.join(ckpts, name))
-        cm.LAUNCHES = cp.LAUNCHES = 0
+        cm.LAUNCHES = cp.LAUNCHES = cs.LAUNCHES = 0
         r3 = algorithm2.run(cfg2, resume=True, device=DEVICE)
         torch.cuda.synchronize()
-        launches3 = (cm.LAUNCHES, cp.LAUNCHES)
+        launches3 = (cm.LAUNCHES, cp.LAUNCHES, cs.LAUNCHES)
         expected3 = a2_schedule(cfg2, a2_cycles - mid, resumed=True)
         require(r3["start_cycle"] == mid and launches3 == expected3,
                 f"blocked A2 resume: start {r3['start_cycle']}, launches "
@@ -2016,14 +2356,14 @@ def phase_blocked(card: str, chains: int = 16384, a1: dict = None,
           **{f"train_step_K{d}_device_ms": (
               None if v["device_ms"] is None else f"{v['device_ms']:.3f}")
              for d, v in steps.items()},
-          a1_launches=f"{launches1[0]},{launches1[1]}",
+          a1_launches=",".join(map(str, launches1)),
           a1_loss=f"{loss1:.4f}", a1_acceptance=f"{acc1:.4f}",
           a1_df_particle=f"{r1['df_particle']:.4f}",
           a1_phase_s=",".join(f"{key}:{v:.2f}"
                               for key, v in r1["phase_s"].items()),
           a1_wall_s=f"{wall1:.2f}",
-          a2_launches=f"{launches2[0]},{launches2[1]}",
-          a2_resumed_launches=f"{launches3[0]},{launches3[1]}",
+          a2_launches=",".join(map(str, launches2)),
+          a2_resumed_launches=",".join(map(str, launches3)),
           a2_acceptance=f"{acc2:.4f}", a2_wall_s=f"{wall2:.2f}")
     return {"bench": bench, "train_step": steps, "launches_a1": launches1,
             "launches_a2": launches2, "max_abs_err": pair_err}
@@ -2117,7 +2457,8 @@ def phase_samplers(card: str, chains: int = 16384, pt: dict = None,
     gradient against central differences in float64, ``mcmc_only`` with
     each at the reference preset (the budget cut), launches, acceptance,
     ms per move and per trajectory.  (d) ``train_npz`` on the PT run's
-    cold configurations at A1's widths, one epoch."""
+    cold configurations at A1's widths, one epoch: its evaluation sample
+    one pass of spline launches."""
     import numpy as np
     import torch
 
@@ -2134,6 +2475,7 @@ def phase_samplers(card: str, chains: int = 16384, pt: dict = None,
     from flowstate_tpu_torch.mcmc.state import TENSOR_FIELDS
     from flowstate_tpu_torch.mcmc.tempering import temperature_ladder
     from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.ops import cuda_spline as cs
     from flowstate_tpu_torch.ops.pair_energy import total_energy_virial
     from flowstate_tpu_torch.tools.tempering_check import profile_rounds
     from flowstate_tpu_torch.utils.config import (
@@ -2266,6 +2608,7 @@ def phase_samplers(card: str, chains: int = 16384, pt: dict = None,
         npz = os.path.join(out, "pt_cold.npz")
         np.savez(npz, configs=rows)
         widths = train_widths or dict(K=15, hidden_units=256, num_bins=32)
+        cs.LAUNCHES = 0
         t0 = time.perf_counter()
         tn = train_npz.main([
             "--npz_path", npz, "--output_path", os.path.join(out, "npz"),
@@ -2274,6 +2617,10 @@ def phase_samplers(card: str, chains: int = 16384, pt: dict = None,
             "--num_bins", str(widths["num_bins"]), "--epochs", "1",
             "--eval_samples", "20000", "--device", DEVICE])
         wall_npz = time.perf_counter() - t0
+        launches_npz = cs.LAUNCHES    # its evaluation sample, one pass
+        require(launches_npz == spline_launches(widths["K"], 1),
+                f"train_npz launched {launches_npz} splines, its evaluation "
+                f"sample implies {spline_launches(widths['K'], 1)}")
         written = set(os.listdir(os.path.join(out, "npz")))
         require(np.isfinite(tn["final_loss"]) and tn["num_samples"] > 0
                 and {"trained_model.pkl", "frequency_heatmap_data.json",
@@ -2416,8 +2763,8 @@ def phase_samplers(card: str, chains: int = 16384, pt: dict = None,
           mala_ms_per_move=f"{mala_ms:.3f}",
           hmc_ms_per_trajectory=f"{hmc_ms:.3f}",
           npz_loss=f"{tn['final_loss']:.4f}", npz_samples=tn["num_samples"],
-          npz_wall_s=f"{wall_npz:.2f}")
-    return {"launches_pt": launches,
+          npz_spline_launches=launches_npz, npz_wall_s=f"{wall_npz:.2f}")
+    return {"launches_pt": launches, "launches_npz": launches_npz,
             "launches_mala_hmc": {k: v["launches"][1]
                                   for k, v in drivers.items()},
             "timing": timing, "max_abs_err": err_a}
@@ -2484,7 +2831,7 @@ def phase_nets(card: str, chains: int = 16384, batch: int = 512,
     against the separate passes; ms, device kernels and device ms of
     ``log_prob`` and of one big-move round at ``chains`` (its energies
     through K2), and of a training step at ``batch`` with its peak memory;
-    (b) ``algorithm1.run`` at N=8 with that net: K1 and K2 launches
+    (b) ``algorithm1.run`` at N=8 with that net: K1, K2 and spline launches
     against the schedule, a finite loss, acceptance in [0, 1].  (c) Once,
     the residual flow at A1's widths (N=3): a training step in bf16
     against float32, the bf16 flow's fused log q against its
@@ -2501,6 +2848,7 @@ def phase_nets(card: str, chains: int = 16384, batch: int = 512,
     )
     from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
     from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.ops import cuda_spline as cs
     from flowstate_tpu_torch.utils.config import algorithm1_config
 
     # float32 products in full float32, as the residual flow's (phase 12)
@@ -2586,16 +2934,16 @@ def phase_nets(card: str, chains: int = 16384, batch: int = 512,
                 hidden_units=hidden, net_type=net_type,
                 **(a1 or NETS_A1))
             expected = a1_schedule(config)
-            cm.LAUNCHES = cp.LAUNCHES = 0
+            cm.LAUNCHES = cp.LAUNCHES = cs.LAUNCHES = 0
             t0 = time.perf_counter()
             result = algorithm1.run(config, device=DEVICE)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-            launches = (cm.LAUNCHES, cp.LAUNCHES)
+            launches = (cm.LAUNCHES, cp.LAUNCHES, cs.LAUNCHES)
         loss, acc = result["final_loss"], result["big_move_acceptance"]
         require(launches == expected,
-                f"A1 with {net_type} launched K1, K2 {launches} times, "
-                f"schedule implies {expected}")
+                f"A1 with {net_type} launched K1, K2, splines {launches} "
+                f"times, schedule implies {expected}")
         require(loss is not None and np.isfinite(loss),
                 f"A1 with {net_type}: final loss {loss}")
         require(0.0 <= acc <= 1.0, f"A1 with {net_type}: acceptance {acc}")
@@ -2619,6 +2967,8 @@ def phase_nets(card: str, chains: int = 16384, batch: int = 512,
               train_step_peak_mib=f"{times['train_step']['peak_mib']:.1f}",
               a1_launches_k1=launches[0], a1_expected_k1=expected[0],
               a1_launches_k2=launches[1], a1_expected_k2=expected[1],
+              a1_launches_spline=launches[2],
+              a1_expected_spline=expected[2],
               a1_final_loss=f"{loss:.4f}", a1_acceptance=f"{acc:.4f}",
               **{f"a1_phase_{k}_s": f"{v:.2f}"
                  for k, v in result["phase_s"].items()},
@@ -3006,8 +3356,11 @@ def phase_zoo(card: str, rounds: dict = None, sample_blocks: int =
     spline layers over ``UniformParticle(3, 2, L/2)``, every coordinate
     circular, at A1's widths: samples from K1 at 100 chains, ``training.
     train`` at batch 512, then ``nf_big_moves`` rounds at 100 and 16,384
-    chains, K2 pricing the proposals; K1's and K2's launches by their
-    wrappers' counts and by the profiler (at least one record each, F6),
+    chains, K2 pricing the proposals; K1's, K2's and the spline's launches
+    by their wrappers' counts (K (D + 2) splines a round: a launch per
+    feature and one for the log-det in each layer's sequential sampling
+    pass, one in its log q pass) and K1's and K2's by the profiler (at
+    least one record each, F6),
     the acceptance in (0, 1], every ratio finite or -inf (an overlapping
     proposal), ``log_prob`` of the proposals against their fused log q;
     ms, kernels and device ms a round.  (b) and (c) the normflows
@@ -3023,6 +3376,7 @@ def phase_zoo(card: str, rounds: dict = None, sample_blocks: int =
     from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
     from flowstate_tpu_torch.mcmc.state import batched_energy_virial
     from flowstate_tpu_torch.ops import cuda_pair as cp
+    from flowstate_tpu_torch.ops import cuda_spline as cs
     from flowstate_tpu_torch.training import TrainConfig, train
 
     rounds = rounds or ZOO_ROUNDS
@@ -3045,7 +3399,7 @@ def phase_zoo(card: str, rounds: dict = None, sample_blocks: int =
         F.UniformParticle(3, 2, hb),
         [F.ParamLayer(layer, g, device=DEVICE) for _ in range(w["K"])],
         device=DEVICE)
-    cm.LAUNCHES = cp.LAUNCHES = 0
+    cm.LAUNCHES = cp.LAUNCHES = cs.LAUNCHES = 0
     pos, _ = init_alternating_wells(100, 3, 0.03)
     state = init_chain_state(spec, torch.as_tensor(pos, device=DEVICE), 62,
                              0.65)
@@ -3084,11 +3438,13 @@ def phase_zoo(card: str, rounds: dict = None, sample_blocks: int =
                                   .all())
             states[c] = s
     torch.cuda.synchronize()
-    launches = (cm.LAUNCHES, cp.LAUNCHES)
-    expected_k2 = 2 + sum(rounds.values())   # the two states' energies
-    require(launches == (sample_blocks + 2, expected_k2),
-            f"zoo (a): K1, K2 launched {launches} times, the path implies "
-            f"{(sample_blocks + 2, expected_k2)}")
+    launches = (cm.LAUNCHES, cp.LAUNCHES, cs.LAUNCHES)
+    expected = (sample_blocks + 2,
+                2 + sum(rounds.values()),      # and the two states' energies
+                w["K"] * (6 + 2) * sum(rounds.values()))
+    require(launches == expected,
+            f"zoo (a): K1, K2, splines launched {launches} times, the path "
+            f"implies {expected}")
     acceptance = accepted / attempted
     require(0.0 < acceptance <= 1.0, f"zoo (a): acceptance {acceptance}")
     require(ratios_ok, "zoo (a): a NaN or +inf MH log-ratio")
@@ -3140,6 +3496,7 @@ def phase_zoo(card: str, rounds: dict = None, sample_blocks: int =
           train_steps=steps, train_ms_per_step=f"{train_s / steps * 1e3:.3f}",
           final_epoch_loss=f"{loss_epoch[-1]:.4f}",
           k1_launches=launches[0], k2_launches=launches[1],
+          spline_launches=launches[2],
           profiler_k1=k1_seen, profiler_k2=k2_seen,
           acceptance=f"{acceptance:.5f}", attempts=attempted,
           log_q_rel=f"{lq_rel:.3g}",
@@ -4606,6 +4963,7 @@ def main() -> int:
     phase_build()
     err = phase_pathwise()
     err_k2 = phase_pair_kernel()
+    spline = phase_spline_kernel(card)
     phase_statistics()
     phase_exact_physics()
     main_path = phase_main_path()
@@ -4685,6 +5043,23 @@ def main() -> int:
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "rq_spline",
+        "route": "cuda",
+        "source": "flowstate_tpu_torch/csrc/rq_spline.cu",
+        "replaces": None,
+        "launches": a1["launches_spline"],
+        "launches_a2": a2["launches_spline"],
+        "launches_blocked": {"a1": blocked["launches_a1"][2],
+                             "a2": blocked["launches_a2"][2]},
+        "launches_npz": samplers["launches_npz"],
+        "launches_nets": {k: nets[k]["a1"]["launches"][2] for k in NETS},
+        "launches_zoo": zoo["launches"][2],
+        "launches_round": spline["launches"],
+        "max_abs_err": spline["worst"]["out_gap"],
+        "times": spline["times"],
+        "bound_by": "bytes",
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,7 @@ import torch
 from flowstate_tpu_torch.flows.nets import Tree, _linear_init
 from flowstate_tpu_torch.ops.splines import (
     IDENTITY_DERIVATIVE_CONSTANT, rational_quadratic_spline,
-    unconstrained_rational_quadratic_spline,
+    unconstrained_rational_quadratic_spline_sum,
 )
 
 
@@ -197,32 +197,33 @@ class MaskedPiecewiseRQSAutoregressive:
             identity_bias=IDENTITY_DERIVATIVE_CONSTANT)}
 
     def _elementwise(self, params, cond_input, x, inverse: bool):
+        """The spline of ``x`` under the parameters MADE gives
+        ``cond_input``: (outputs, log-det summed over the features)."""
         raw = self._net().apply(params["made"], cond_input)
         raw = raw.reshape(x.shape[0], self.features, self._multiplier)
         nb = self.num_bins
         scale = 1.0 / math.sqrt(self.hidden_features)
-        uw = raw[..., :nb] * scale
-        uh = raw[..., nb:2 * nb] * scale
-        ud = raw[..., 2 * nb:]
         if self.tails is None:
-            return rational_quadratic_spline(
-                x, uw, uh, ud, inverse=inverse, left=-self.tail_bound,
+            out, ld = rational_quadratic_spline(
+                x, raw[..., :nb] * scale, raw[..., nb:2 * nb] * scale,
+                raw[..., 2 * nb:], inverse=inverse, left=-self.tail_bound,
                 right=self.tail_bound, bottom=-self.tail_bound,
                 top=self.tail_bound)
-        return unconstrained_rational_quadratic_spline(
-            x, uw, uh, ud, inverse=inverse, tails=self.tails,
-            tail_bound=self.tail_bound)
+            return out, torch.sum(ld, dim=-1)
+        return unconstrained_rational_quadratic_spline_sum(
+            x, raw[..., :nb], raw[..., nb:2 * nb], raw[..., 2 * nb:],
+            inverse=inverse, tails=self.tails, tail_bound=self.tail_bound,
+            scale=scale)
 
     def forward(self, params, z):
-        out, ld = self._elementwise(params, z, z, inverse=False)
-        return out, torch.sum(ld, dim=-1)
+        return self._elementwise(params, z, z, inverse=False)
 
     def inverse(self, params, z):
         x = _sequential_inverse(
             self.features, z,
             lambda x: self._elementwise(params, x, z, inverse=True)[0])
         _, ld = self._elementwise(params, x, x, inverse=False)
-        return x, -torch.sum(ld, dim=-1)
+        return x, -ld
 
 
 class _MAF:

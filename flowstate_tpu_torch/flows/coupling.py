@@ -48,7 +48,7 @@ from flowstate_tpu_torch.flows.nets import (
     TransformerNet, Tree,
 )
 from flowstate_tpu_torch.ops.splines import (
-    IDENTITY_DERIVATIVE_CONSTANT, unconstrained_rational_quadratic_spline,
+    IDENTITY_DERIVATIVE_CONSTANT, unconstrained_rational_quadratic_spline_sum,
 )
 from flowstate_tpu_torch.utils.profiling import annotate
 
@@ -205,12 +205,11 @@ class CircularSplineCoupling(nn.Module):
         raw = raw.reshape(raw.shape[0], len(self.transform_idx),
                           self.param_multiplier)
         nb = self.num_bins
-        scale = 1.0 / math.sqrt(self.hidden_units)
-        out, logdet = unconstrained_rational_quadratic_spline(
-            transform_split, raw[..., :nb] * scale, raw[..., nb:2 * nb] * scale,
+        return unconstrained_rational_quadratic_spline_sum(
+            transform_split, raw[..., :nb], raw[..., nb:2 * nb],
             raw[..., 2 * nb:], inverse=inverse, tails=self.tails_transform,
-            tail_bound=self.tail_bound)
-        return out, sum_except_batch(logdet)
+            tail_bound=self.tail_bound,
+            scale=1.0 / math.sqrt(self.hidden_units))
 
     def _apply_net(self, net_params: Tree, x: torch.Tensor,
                    context: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -230,13 +229,12 @@ class CircularSplineCoupling(nn.Module):
                               inverse: bool):
         u = p["uncond"]
         b = identity_split.shape[0]
-        out, logdet = unconstrained_rational_quadratic_spline(
+        return unconstrained_rational_quadratic_spline_sum(
             identity_split, u["widths"].expand(b, *u["widths"].shape),
             u["heights"].expand(b, *u["heights"].shape),
             u["derivatives"].expand(b, *u["derivatives"].shape),
             inverse=inverse, tails=self.tails_identity,
             tail_bound=self.tail_bound)
-        return out, sum_except_batch(logdet)
 
     def _coupling_forward(self, p: Tree, x: torch.Tensor, context=None):
         identity_split, transform_split = self._split(x)

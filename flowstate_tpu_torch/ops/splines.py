@@ -17,6 +17,15 @@ The same algebra as the JAX version, in plain PyTorch:
 * the inverse solves the quadratic with ``disc = |b^2 - 4ac|``;
 * inputs outside ``[-tail_bound, tail_bound]`` pass through with zero
   log-det, computed on clamped inputs and selected away.
+
+``unconstrained_rational_quadratic_spline_sum`` is what the flows call: the
+same spline on a (B, D) batch with parameters by stride (the net's raw
+output sliced, or (D, bins) parameters expanded over the batch), widths
+and heights times ``scale``, and the log-det summed over each row.  On the
+card in float32, where no gradient is recorded, it is one launch of the
+hand-written kernel (``ops/cuda_spline.py``, ``csrc/rq_spline.cu``); on
+the CPU, in other dtypes and wherever autograd records, it is the
+composition here, the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from flowstate_tpu_torch.ops import cuda_spline
 from flowstate_tpu_torch.utils.profiling import annotate
 
 DEFAULT_MIN_BIN_WIDTH = 1e-3
@@ -37,11 +47,14 @@ DEFAULT_MIN_DERIVATIVE = 1e-3
 # softplus makes the spline's slope exactly 1 (identity init, linear tails)
 IDENTITY_DERIVATIVE_CONSTANT = math.log(math.expm1(1.0 - DEFAULT_MIN_DERIVATIVE))
 
+# added to the last knot in the bin search
+SEARCH_EPS = 1e-6
+
 Tails = Union[str, Sequence[str]]
 
 
 def _searchsorted(bin_locations: torch.Tensor, inputs: torch.Tensor,
-                  eps: float = 1e-6) -> torch.Tensor:
+                  eps: float = SEARCH_EPS) -> torch.Tensor:
     """The bin of each input: the count of knots at or below it, less one,
     with ``eps`` added to the last knot, clipped to ``[0, bins - 1]``."""
     num_bins = bin_locations.shape[-1] - 1
@@ -211,3 +224,57 @@ def unconstrained_rational_quadratic_spline(
         logabsdet = torch.where(inside, spline_logdet,
                                 torch.zeros_like(spline_logdet))
         return outputs, logabsdet
+
+
+def _takes_kernel(*tensors: torch.Tensor) -> bool:
+    """The kernel's path: float32 tensors on the card and no gradient to
+    record."""
+    if not cuda_spline.on_card(tensors[0]) or any(
+            t.dtype != torch.float32 for t in tensors):
+        return False
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors))
+
+
+def unconstrained_rational_quadratic_spline_sum(
+    inputs: torch.Tensor,
+    unnormalized_widths: torch.Tensor,
+    unnormalized_heights: torch.Tensor,
+    unnormalized_derivatives: torch.Tensor,
+    inverse: bool = False,
+    tails: Tails = "linear",
+    tail_bound: float = 1.0,
+    scale: float = 1.0,
+    min_bin_width: float = DEFAULT_MIN_BIN_WIDTH,
+    min_bin_height: float = DEFAULT_MIN_BIN_HEIGHT,
+    min_derivative: float = DEFAULT_MIN_DERIVATIVE,
+    circular_tie: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``unconstrained_rational_quadratic_spline`` of (B, D) ``inputs``
+    with the widths and heights times ``scale``; returns the outputs and
+    the log-det summed over each row, (B,).  Parameters (B, D, bins) and
+    (B, D, slots) may be views: slices of the net's raw output, or (D, ...)
+    parameters expanded over the batch.  float32 CUDA tensors with no
+    gradient to record take one launch of ``cuda_spline.rq_spline_kernel``
+    (a span ``flow.spline``); the rest take the plain composition."""
+    params = (unnormalized_widths, unnormalized_heights,
+              unnormalized_derivatives)
+    if _takes_kernel(inputs, *params):
+        with annotate("flow.spline"):
+            return cuda_spline.rq_spline_kernel(
+                inputs, *params, inverse=inverse, tails=tails,
+                tail_bound=tail_bound, scale=scale,
+                circular_tie=circular_tie, min_bin_width=min_bin_width,
+                min_bin_height=min_bin_height,
+                min_derivative=min_derivative, eps=SEARCH_EPS,
+                identity_derivative=IDENTITY_DERIVATIVE_CONSTANT)
+    widths, heights, derivatives = params
+    if scale != 1.0:
+        widths, heights = widths * scale, heights * scale
+    outputs, logabsdet = unconstrained_rational_quadratic_spline(
+        inputs, widths, heights, derivatives, inverse=inverse, tails=tails,
+        tail_bound=tail_bound, min_bin_width=min_bin_width,
+        min_bin_height=min_bin_height, min_derivative=min_derivative,
+        circular_tie=circular_tie)
+    return outputs, torch.sum(logabsdet.reshape(logabsdet.shape[0], -1),
+                              dim=-1)

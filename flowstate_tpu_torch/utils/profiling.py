@@ -33,7 +33,9 @@ The port's spans, where they open:
   ``flows/core.NormalizingFlow``, one flow pass each;
 * ``flow.net``: ``flows/coupling.CircularSplineCoupling._apply_net``, the
   conditioner (residual net, transformer, EGNN);
-* ``flow.spline``: ``ops/splines.unconstrained_rational_quadratic_spline``;
+* ``flow.spline``: ``ops/splines.unconstrained_rational_quadratic_spline``
+  (the plain composition) and, on the card without autograd, the spline
+  kernel's launch in ``unconstrained_rational_quadratic_spline_sum``;
 * ``pair.energy``: ``mcmc/state.batched_energy_virial``, the pair-energy
   kernel or its plain version;
 * ``hybrid.verdict``: ``mcmc/hybrid.apply_big_moves``, the proposals'
