@@ -26,6 +26,11 @@ matmul and hidden activation in bf16: operands and outputs of the linears
 in bf16, layer-norm statistics in float32, the net's output cast back to
 the input's dtype.  Parameters stay in their own dtype.
 
+``TorusEGNN.apply`` opens a span ``flow.gnn.messages`` around its message
+passing (the relative coordinates through the last layer's update) and
+adds the messages it computes, rows x N(N - 1) x layers, to
+``GNN_MESSAGES``.
+
 ``conv2d`` is the image and Lipschitz layers' convolution (NCHW by OIHW,
 in the input's dtype); its forward, backward and double backward run
 without cuDNN's TF32, which PyTorch allows by default for float32.
@@ -47,7 +52,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from flowstate_tpu_torch.utils.profiling import annotate
+
 Tree = Dict[str, object]
+
+GNN_MESSAGES = 0     # messages ``TorusEGNN.apply`` computed in this process
 
 
 def _uniform(shape, bound: float, generator: Optional[torch.Generator],
@@ -410,17 +419,22 @@ class TorusEGNN:
         lead = x.shape[:-1]
         n, fd = self.n_particles, self.feat_dim
         coords = x[..., :n * fd].reshape(*lead, n, fd)
+        global GNN_MESSAGES
         h = _linear(params["embed"], torch.cat([torch.cos(coords),
                                                 torch.sin(coords)], dim=-1))
-        rel = coords.unsqueeze(-2) - coords.unsqueeze(-3)     # (..., N, N, fd)
-        rel = rel - 2 * math.pi * torch.round(rel / (2 * math.pi))
-        rel_feat = torch.cat([torch.sin(rel), torch.cos(rel)], dim=-1)
-        off_diagonal = 1.0 - torch.eye(n, dtype=x.dtype, device=x.device)
-        for layer in params["layers"]:
-            width = (*lead, n, n, h.shape[-1])
-            m_in = torch.cat([h.unsqueeze(-2).expand(width),
-                              h.unsqueeze(-3).expand(width), rel_feat], dim=-1)
-            m = F.silu(_linear(layer["msg"], m_in))
-            agg = torch.sum(m * off_diagonal.unsqueeze(-1), dim=-2)
-            h = h + F.silu(_linear(layer["upd"], torch.cat([h, agg], dim=-1)))
+        with annotate("flow.gnn.messages"):
+            rel = coords.unsqueeze(-2) - coords.unsqueeze(-3)  # (..., N, N, fd)
+            rel = rel - 2 * math.pi * torch.round(rel / (2 * math.pi))
+            rel_feat = torch.cat([torch.sin(rel), torch.cos(rel)], dim=-1)
+            off_diagonal = 1.0 - torch.eye(n, dtype=x.dtype, device=x.device)
+            for layer in params["layers"]:
+                width = (*lead, n, n, h.shape[-1])
+                m_in = torch.cat([h.unsqueeze(-2).expand(width),
+                                  h.unsqueeze(-3).expand(width), rel_feat],
+                                 dim=-1)
+                m = F.silu(_linear(layer["msg"], m_in))
+                agg = torch.sum(m * off_diagonal.unsqueeze(-1), dim=-2)
+                h = h + F.silu(_linear(layer["upd"],
+                                       torch.cat([h, agg], dim=-1)))
+        GNN_MESSAGES += math.prod(lead) * n * (n - 1) * len(params["layers"])
         return _linear(params["final"], torch.mean(h, dim=-2))

@@ -33,6 +33,9 @@ The port's spans, where they open:
   ``flows/core.NormalizingFlow``, one flow pass each;
 * ``flow.net``: ``flows/coupling.CircularSplineCoupling._apply_net``, the
   conditioner (residual net, transformer, EGNN);
+* ``flow.gnn.messages``: ``flows/nets.TorusEGNN.apply``, inside
+  ``flow.net``, the EGNN's message passing (its layers, without the
+  embedding, the mean and the output linear);
 * ``flow.spline``: ``ops/splines.unconstrained_rational_quadratic_spline``
   (the plain composition) and, on the card without autograd, the spline
   kernel's launch in ``unconstrained_rational_quadratic_spline_sum``;
