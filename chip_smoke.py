@@ -5,11 +5,13 @@
 
 Builds the hand-written CUDA kernels from ``flowstate_tpu_torch/csrc``
 (the Metropolis move kernel K1, the pair-energy kernel K2, the fp32
-issue-rate probe K3 and the flows' rational-quadratic spline, one
-``nvcc`` each, in parallel), holds each against its plain PyTorch
-version (K1 from N=3 to 32,768, on each of its memory paths; the spline
-at both big-move round cells' shapes and each tail rule, with its
-launches a round and its time), checks K1's statistics and the exact N=1 free
+issue-rate probe K3, the flows' rational-quadratic spline and the torus
+EGNN's message passing, one ``nvcc`` each, in parallel), holds each
+against its plain PyTorch version (K1 from N=3 to 32,768, on each of its
+memory paths; the spline at both big-move round cells' shapes and each
+tail rule, with its launches a round and its time; the EGNN kernel at the
+gnn cell's call and at N = 1 to 8, hidden 16 to 128, with its launches a
+round and its time), checks K1's statistics and the exact N=1 free
 energy, runs the MCMC-only experiment at the reference preset through K1
 and K2, times them, runs the NVT single-run CLI at N=1024, 2048 and
 8192, reads the
@@ -154,7 +156,7 @@ def phase_build() -> float:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
     require(set(res.libs) == {"metropolis_moves", "pair_energy",
-                              "issue_rate", "rq_spline"},
+                              "issue_rate", "rq_spline", "egnn_messages"},
             f"built {sorted(res.libs)}")
     phase("2 build", seconds=f"{res.seconds:.2f}",
           libraries=",".join(sorted(res.paths.values())))
@@ -812,6 +814,249 @@ def phase_spline_kernel(card: str, cases=SPLINE_CASES, hb: float = 5.0,
           launches_a1_round=launches["a1"], launches_n8_round=launches["n8"],
           launches_train_step=launches["train_step"])
     return {"worst": worst, "times": times, "launches": launches}
+
+
+# The EGNN's message-passing kernel against its plain version (phase 3d).
+# Both run in float32 and sum in other orders: the plain version's message
+# product is one cuBLAS dot of 2H + 2fd terms then a bias add, and a
+# reduction over a masked sender axis; the kernel sums W_a h_i, W_b h_j
+# and W_e e_ij apart (FMAs in k order) and the senders in order.  So
+# neither is the truth: each is held against the plain version in float64
+# on the same inputs, by its largest gap over (1 + |value|).  Float32's
+# reordered sums of some 2H terms, through the layers' SiLU sums of N - 1
+# messages, part by some 1e-6 of the values; the kernel's gap may be at
+# most EGNN_MAX_X times the plain version's, or EGNN_FLOOR where that is
+# larger.  A fault (a wrong weight row, sender, feature, net or wrap)
+# moves the states by a tenth of their size or more.
+EGNN_MAX_X = 4.0
+EGNN_FLOOR = 2e-5
+# (label, nets (None: no net axis), rows a net, N, H, layers, fd): the
+# gnn cell's call (N=8, H=64, 2 layers) paired and alone, then N = 3 and
+# 4 at hidden 16 and 128, N = 5 over three layers, one node, hidden 256
+# (Config's default; weights read from L2), N = 12 and 16 (two chunks of
+# nodes, at hidden 64 and 256), five layers (two launches), and a node of
+# two coordinates (the plain version: the kernel takes one)
+EGNN_CASES = (
+    ("cell_paired", 2, 16384, 8, 64, 2, 1),
+    ("cell", None, 16384, 8, 64, 2, 1),
+    ("n3_h16", None, 4096, 3, 16, 1, 1),
+    ("n3_h128", 2, 4096, 3, 128, 1, 1),
+    ("n4_h16", 2, 4096, 4, 16, 1, 1),
+    ("n4_h128", None, 4096, 4, 128, 1, 1),
+    ("n5_h36", 2, 1000, 5, 36, 3, 1),
+    ("n1_h64", None, 777, 1, 64, 2, 1),
+    ("n8_h256", 2, 4096, 8, 256, 2, 1),
+    ("n12_h64", None, 2048, 12, 64, 2, 1),
+    ("n16_h256", 2, 1024, 16, 256, 2, 1),
+    ("n3_h64_l5", None, 2048, 3, 64, 5, 1),
+    ("n5_fd2_h36", 2, 1000, 5, 36, 3, 2),
+)
+# cases timed beside their plain version
+EGNN_TIMED = ("cell_paired", "cell", "n8_h256", "n16_h256")
+
+
+def egnn_inputs(nets, rows: int, n: int, hidden: int, layers: int, fd: int,
+                seed: int):
+    """(net, tree, coords) on the card: a ``TorusEGNN`` that takes its
+    coordinates on the 2 pi torus as they are, its tree drawn as the
+    benchmark's gnn weights are (each ``w`` normal of std 1 /
+    sqrt(fan_in), each ``b`` of std 0.1), with a leading axis of ``nets``
+    where given; coordinates uniform on [-pi, pi), a sixth of the rows with nodes 0 and 1 equal
+    (rel = 0), a sixth at pi / 2 and -pi / 2 (rel = +-pi, where rint
+    ties), a sixth at pi and -pi (rel = 2 pi)."""
+    import torch
+
+    from flowstate_tpu_torch.flows.nets import TorusEGNN
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    net = TorusEGNN(num_node=n * fd, out_dim=97, feat_dim=fd,
+                    hidden_dim=hidden, num_layers=layers)
+    pre = (nets,) if nets else ()
+
+    def linear(fan_in, out):
+        return {"w": torch.randn(pre + (fan_in, out), generator=g,
+                                 device=DEVICE) / math.sqrt(fan_in),
+                "b": torch.randn(pre + (out,), generator=g,
+                                 device=DEVICE) * 0.1}
+
+    tree = {"embed": linear(2 * fd, hidden),
+            "layers": [{"msg": linear(2 * hidden + 2 * fd, hidden),
+                        "upd": linear(2 * hidden, hidden)}
+                       for _ in range(layers)],
+            "final": linear(hidden, 97)}
+    lead = pre + (rows,)
+    c = (torch.rand(lead + (n, fd), generator=g, device=DEVICE) * 2 - 1) \
+        * math.pi
+    s = rows // 6
+    if n > 1:
+        c[..., :s, 1, :] = c[..., :s, 0, :]
+        c[..., s:2 * s, 0, 0], c[..., s:2 * s, 1, 0] = math.pi / 2, \
+            -math.pi / 2
+        c[..., 2 * s:3 * s, 0, 0], c[..., 2 * s:3 * s, 1, 0] = math.pi, \
+            -math.pi
+    return net, tree, c.reshape(lead + (n * fd,))
+
+
+def egnn_flops(rows: int, n: int, hidden: int, layers: int) -> int:
+    """The message passing's least products (benchmark/gnn_counts.py::
+    layer_flops) over ``rows`` rows and ``layers`` layers."""
+    return rows * layers * (2 * (2 * n * hidden * hidden)
+                            + 2 * n * (n - 1) * 2 * hidden
+                            + 2 * n * 2 * hidden * hidden)
+
+
+def phase_egnn_kernel(card: str, cases=EGNN_CASES, hb: float = 5.0,
+                      chains: int = 16384) -> dict:
+    """The EGNN's message-passing kernel (csrc/egnn_messages.cu) against
+    its plain version in float32 at the gnn cell's call, paired and alone,
+    and at N = 1 to 16 with hidden 16 to 256 and up to five layers, on
+    coordinates at rel = 0 and +-pi, each held against the plain version
+    in float64, for the node states and the net's output;
+    ``TorusEGNN.apply`` taking it (one launch every four layers, its
+    output the kernel's), and leaving it to the plain version for a node
+    of two coordinates; its launches in a round of the
+    gnn flow (one a conditioner call: 30 in ``run_testing``'s separate
+    passes, 15 paired) and in a training step (none); its time by CUDA
+    events beside its bound (operations at 67 TFLOP/s) and the plain
+    version's."""
+    import torch
+
+    from flowstate_tpu_torch.flows import build_circular_flow, nets, tree_map
+    from flowstate_tpu_torch.ops import cuda_egnn
+    from flowstate_tpu_torch.training import (
+        TrainConfig, make_optimizer, make_train_step,
+    )
+    from flowstate_tpu_torch.utils.roofs import PEAK_FP32_FLOPS
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmuls are on")
+    worst, gaps, times, faults = {}, {}, {}, []
+    for i, (label, g_nets, rows, n, hidden, layers, fd) in enumerate(cases):
+        net, tree, coords = egnn_inputs(g_nets, rows, n, hidden, layers, fd,
+                                        seed=200 + i)
+        lead = coords.shape[:-1]
+        t64 = tree_map(lambda a: a.double(), tree)
+        c = coords.reshape(*lead, n, fd)
+
+        def embed(tr, cc):
+            return nets._linear(tr["embed"], torch.cat(
+                [torch.cos(cc), torch.sin(cc)], dim=-1))
+
+        def readout(tr, h):
+            return nets._linear(tr["final"], torch.mean(h, dim=-2))
+
+        launches_call = -(-layers // cuda_egnn.MAX_LAYERS)
+        with torch.no_grad():
+            h0 = embed(tree, c)
+            p_h = nets.egnn_messages_plain(c, h0, tree["layers"])
+            if not cuda_egnn.fits(n, fd, hidden):
+                before = cuda_egnn.LAUNCHES
+                a_out = net.apply(tree, coords)
+                torch.cuda.synchronize()
+                require(cuda_egnn.LAUNCHES == before and torch.equal(
+                    a_out, readout(tree, p_h)),
+                        f"{label}: TorusEGNN.apply left the plain version")
+                print(f"  {label}: the plain version, no launch", flush=True)
+                gaps[label] = "plain"
+                del net, tree, t64, coords, c, h0, p_h
+                continue
+            before = cuda_egnn.LAUNCHES
+            k_h = cuda_egnn.egnn_messages(coords, h0, tree["layers"])
+            torch.cuda.synchronize()
+            require(cuda_egnn.LAUNCHES == before + launches_call,
+                    f"{label}: launches")
+            t_h = nets.egnn_messages_plain(c.double(), embed(t64, c.double()),
+                                           t64["layers"])
+            k_out, p_out = readout(tree, k_h), readout(tree, p_h)
+            t_out = readout(t64, t_h)
+            before = cuda_egnn.LAUNCHES
+            a_out = net.apply(tree, coords)
+            torch.cuda.synchronize()
+            require(cuda_egnn.LAUNCHES == before + launches_call
+                    and torch.equal(a_out, k_out),
+                    f"{label}: TorusEGNN.apply did not take the kernel")
+
+        def rel_gap(a, b):
+            return float(((a.double() - b.double()).abs()
+                          / (1.0 + b.double().abs())).max())
+
+        row = {}
+        for name, k_v, p_v, t_v in (("states", k_h, p_h, t_h),
+                                    ("output", k_out, p_out, t_out)):
+            require(bool(torch.isfinite(k_v).all()),
+                    f"{label}: the kernel's {name} are not finite")
+            gk, gp, gkp = rel_gap(k_v, t_v), rel_gap(p_v, t_v), \
+                rel_gap(k_v, p_v)
+            row[name] = (gk, gp, gkp)
+            worst[name] = max(worst.get(name, 0.0), gk)
+            if gk > max(EGNN_MAX_X * gp, EGNN_FLOOR):
+                faults.append(f"{label} {name}: {gk:.3g} off float64 "
+                              f"against the plain version's {gp:.3g}")
+        gaps[label] = row
+        print(f"  {label}: off float64 over (1 + |value|), kernel / plain, "
+              f"and kernel to plain: " + "; ".join(
+                  f"{name} {v[0]:.3g} / {v[1]:.3g}, {v[2]:.3g}"
+                  for name, v in row.items()), flush=True)
+        if label in EGNN_TIMED:
+            total = rows * (g_nets or 1)
+            bound = egnn_flops(total, n, hidden, layers) / PEAK_FP32_FLOPS \
+                * 1e3
+            with torch.no_grad():
+                ms = cuda_ms(lambda: cuda_egnn.egnn_messages(
+                    coords, h0, tree["layers"]), 50)
+                plain_ms = cuda_ms(lambda: nets.egnn_messages_plain(
+                    c, h0, tree["layers"]), 5)
+            times[label] = {"ms": ms, "bound_ms": bound,
+                            "plain_ms": plain_ms}
+        del net, tree, t64, coords, c, h0, k_h, p_h, t_h
+    torch.cuda.empty_cache()
+    require(not faults, "; ".join(faults))
+    # launches: one a conditioner call of the gnn flow, none in training
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(21)
+    flow = build_circular_flow(8, 2, hb, generator=g, device=DEVICE, K=15,
+                               hidden_units=64, num_bins=32, num_blocks=2,
+                               net_type="gnn")
+    x_old = (torch.rand((chains, 16), generator=g, device=DEVICE) * 2 - 1) \
+        * hb
+    launches = {}
+    with torch.no_grad():
+        before = cuda_egnn.LAUNCHES
+        flow.sample_and_log_prob(chains, g)
+        flow.log_prob(x_old)
+        launches["separate"] = cuda_egnn.LAUNCHES - before
+        before = cuda_egnn.LAUNCHES
+        flow.sample_and_log_prob_with_old(chains, x_old, g)
+        launches["paired"] = cuda_egnn.LAUNCHES - before
+    cfg = TrainConfig(batch_size=512)
+    opt = make_optimizer(cfg)
+    step = make_train_step(flow, cfg, opt)
+    before = cuda_egnn.LAUNCHES
+    _, loss = step(opt.init(list(flow.parameters())), x_old[:512].clone())
+    torch.cuda.synchronize()
+    launches["train_step"] = cuda_egnn.LAUNCHES - before
+    require(launches == {"separate": 30, "paired": 15, "train_step": 0}
+            and bool(torch.isfinite(loss)), f"egnn launches {launches}")
+    del flow
+    torch.cuda.empty_cache()
+    for tag, t in times.items():
+        print(f"  {tag}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}%), plain "
+              f"{t['plain_ms']:.3f} ms", flush=True)
+    phase("3d egnn kernel vs plain", card=f"'{card}'",
+          max_states_gap=f"{worst['states']:.3g}",
+          max_output_gap=f"{worst['output']:.3g}",
+          launches_round_separate=launches["separate"],
+          launches_round_paired=launches["paired"],
+          launches_train_step=launches["train_step"],
+          **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in times.items()},
+          **{f"{k}_bound_ms": f"{v['bound_ms']:.4f}"
+             for k, v in times.items()},
+          **{f"{k}_plain_ms": f"{v['plain_ms']:.3f}"
+             for k, v in times.items()})
+    return {"worst": worst, "gaps": gaps, "times": times,
+            "launches": launches}
 
 
 def phase_statistics(num_chains: int = 16384, eq_steps: int = 5000,
@@ -2847,6 +3092,7 @@ def phase_nets(card: str, chains: int = 16384, batch: int = 512,
         init_alternating_wells, init_chain_state, nf_big_moves,
     )
     from flowstate_tpu_torch.mcmc import cuda_metropolis as cm
+    from flowstate_tpu_torch.ops import cuda_egnn as ce
     from flowstate_tpu_torch.ops import cuda_pair as cp
     from flowstate_tpu_torch.ops import cuda_spline as cs
     from flowstate_tpu_torch.utils.config import algorithm1_config
@@ -2911,17 +3157,27 @@ def phase_nets(card: str, chains: int = 16384, batch: int = 512,
                              ("big_move_round", big_move)):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                cp.LAUNCHES = 0
+                cp.LAUNCHES = ce.LAUNCHES = 0
                 fn()
                 torch.cuda.synchronize()
                 launches_k2 = cp.LAUNCHES
+                launches_egnn = ce.LAUNCHES
                 times[name] = {"ms": median_ms(fn, 5), **per_call(fn, 1),
                                "peak_mib": torch.cuda.max_memory_allocated()
-                               / 2 ** 20, "k2_launches": launches_k2}
+                               / 2 ** 20, "k2_launches": launches_k2,
+                               "egnn_launches": launches_egnn}
         require(times["big_move_round"]["k2_launches"] == 1
                 and times["log_prob"]["k2_launches"] == 0,
                 f"{net_type}: K2 launches per big-move round "
                 f"{times['big_move_round']['k2_launches']}")
+        # the EGNN kernel: one launch a conditioner call, K a pass (the
+        # round's proposal and current point paired in one)
+        egnn_k = NETS_FLOW["K"] if net_type == "gnn" else 0
+        require(times["big_move_round"]["egnn_launches"] == egnn_k
+                and times["log_prob"]["egnn_launches"] == egnn_k,
+                f"{net_type}: EGNN launches a paired round and a log q "
+                f"{times['big_move_round']['egnn_launches']}, "
+                f"{times['log_prob']['egnn_launches']}; expected {egnn_k}")
         times["train_step"] = flow_step_timing(flow, x[:batch].clone())
         del flow
         torch.cuda.empty_cache()
@@ -2934,23 +3190,31 @@ def phase_nets(card: str, chains: int = 16384, batch: int = 512,
                 hidden_units=hidden, net_type=net_type,
                 **(a1 or NETS_A1))
             expected = a1_schedule(config)
-            cm.LAUNCHES = cp.LAUNCHES = cs.LAUNCHES = 0
+            # the EGNN kernel: one launch a conditioner call, K a pass
+            expected_egnn = (expected[2] // 2 if net_type == "gnn" else 0)
+            cm.LAUNCHES = cp.LAUNCHES = cs.LAUNCHES = ce.LAUNCHES = 0
             t0 = time.perf_counter()
             result = algorithm1.run(config, device=DEVICE)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             launches = (cm.LAUNCHES, cp.LAUNCHES, cs.LAUNCHES)
+            launches_egnn = ce.LAUNCHES
         loss, acc = result["final_loss"], result["big_move_acceptance"]
         require(launches == expected,
                 f"A1 with {net_type} launched K1, K2, splines {launches} "
                 f"times, schedule implies {expected}")
+        require(launches_egnn == expected_egnn,
+                f"A1 with {net_type} launched the EGNN kernel "
+                f"{launches_egnn} times, schedule implies {expected_egnn}")
         require(loss is not None and np.isfinite(loss),
                 f"A1 with {net_type}: final loss {loss}")
         require(0.0 <= acc <= 1.0, f"A1 with {net_type}: acceptance {acc}")
         out[net_type] = {**times, "log_q_rel": lp_rel, "trip_err": trip_err,
                          "paired_pos_err": pos_err, "paired_lq_rel": lq_err,
-                         "a1": {"launches": launches, "final_loss": loss,
-                                "acceptance": acc, "wall_s": wall_s,
+                         "a1": {"launches": launches,
+                                "launches_egnn": launches_egnn,
+                                "final_loss": loss, "acceptance": acc,
+                                "wall_s": wall_s,
                                 "phase_s": result["phase_s"]}}
         for name in ("log_prob", "big_move_round", "train_step"):
             v = times[name]
@@ -2969,6 +3233,8 @@ def phase_nets(card: str, chains: int = 16384, batch: int = 512,
               a1_launches_k2=launches[1], a1_expected_k2=expected[1],
               a1_launches_spline=launches[2],
               a1_expected_spline=expected[2],
+              a1_launches_egnn=launches_egnn,
+              a1_expected_egnn=expected_egnn,
               a1_final_loss=f"{loss:.4f}", a1_acceptance=f"{acc:.4f}",
               **{f"a1_phase_{k}_s": f"{v:.2f}"
                  for k, v in result["phase_s"].items()},
@@ -4964,6 +5230,7 @@ def main() -> int:
     err = phase_pathwise()
     err_k2 = phase_pair_kernel()
     spline = phase_spline_kernel(card)
+    egnn = phase_egnn_kernel(card)
     phase_statistics()
     phase_exact_physics()
     main_path = phase_main_path()
@@ -5060,6 +5327,17 @@ def main() -> int:
         "max_abs_err": spline["worst"]["out_gap"],
         "times": spline["times"],
         "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "egnn_messages",
+        "route": "cuda",
+        "source": "flowstate_tpu_torch/csrc/egnn_messages.cu",
+        "replaces": None,
+        "launches_nets": nets["gnn"]["a1"]["launches_egnn"],
+        "launches_round": egnn["launches"],
+        "max_rel_err": egnn["worst"],
+        "times": egnn["times"],
+        "bound_by": "operations",
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

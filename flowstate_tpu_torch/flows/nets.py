@@ -29,7 +29,13 @@ the input's dtype.  Parameters stay in their own dtype.
 ``TorusEGNN.apply`` opens a span ``flow.gnn.messages`` around its message
 passing (the relative coordinates through the last layer's update) and
 adds the messages it computes, rows x N(N - 1) x layers, to
-``GNN_MESSAGES``.
+``GNN_MESSAGES``.  Float32 CUDA tensors with no gradient to record take
+the hand-written kernel there (``ops/cuda_egnn.py``,
+``csrc/egnn_messages.cu``; one launch for up to four layers) where it
+takes the net's widths (``cuda_egnn.fits``: one coordinate a node, as the
+couplings build it, and a hidden width that is a multiple of 4); the CPU,
+other dtypes, training and other widths take ``egnn_messages_plain``, the
+composition the JAX package writes.
 
 ``conv2d`` is the image and Lipschitz layers' convolution (NCHW by OIHW,
 in the input's dtype); its forward, backward and double backward run
@@ -52,6 +58,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from flowstate_tpu_torch.ops import card, cuda_egnn
 from flowstate_tpu_torch.utils.profiling import annotate
 
 Tree = Dict[str, object]
@@ -418,23 +425,39 @@ class TorusEGNN:
             x = self.preprocessing(x)
         lead = x.shape[:-1]
         n, fd = self.n_particles, self.feat_dim
-        coords = x[..., :n * fd].reshape(*lead, n, fd)
+        flat = x[..., :n * fd]
+        coords = flat.reshape(*lead, n, fd)
         global GNN_MESSAGES
         h = _linear(params["embed"], torch.cat([torch.cos(coords),
                                                 torch.sin(coords)], dim=-1))
+        layers = params["layers"]
         with annotate("flow.gnn.messages"):
-            rel = coords.unsqueeze(-2) - coords.unsqueeze(-3)  # (..., N, N, fd)
-            rel = rel - 2 * math.pi * torch.round(rel / (2 * math.pi))
-            rel_feat = torch.cat([torch.sin(rel), torch.cos(rel)], dim=-1)
-            off_diagonal = 1.0 - torch.eye(n, dtype=x.dtype, device=x.device)
-            for layer in params["layers"]:
-                width = (*lead, n, n, h.shape[-1])
-                m_in = torch.cat([h.unsqueeze(-2).expand(width),
-                                  h.unsqueeze(-3).expand(width), rel_feat],
-                                 dim=-1)
-                m = F.silu(_linear(layer["msg"], m_in))
-                agg = torch.sum(m * off_diagonal.unsqueeze(-1), dim=-2)
-                h = h + F.silu(_linear(layer["upd"],
-                                       torch.cat([h, agg], dim=-1)))
-        GNN_MESSAGES += math.prod(lead) * n * (n - 1) * len(params["layers"])
+            if card.takes_kernel(h, flat, *cuda_egnn.layer_leaves(layers)) \
+                    and cuda_egnn.fits(n, fd, h.shape[-1]):
+                h = cuda_egnn.egnn_messages(flat.contiguous(), h, layers)
+            else:
+                h = egnn_messages_plain(coords, h, layers)
+        GNN_MESSAGES += math.prod(lead) * n * (n - 1) * len(layers)
         return _linear(params["final"], torch.mean(h, dim=-2))
+
+
+def egnn_messages_plain(coords: torch.Tensor, h: torch.Tensor,
+                        layers: List[Tree]) -> torch.Tensor:
+    """``TorusEGNN``'s message passing in plain PyTorch: the node states
+    (..., N, H) after every layer, from the coordinates (..., N, fd) on the
+    2 pi torus and the states after the embedding; the kernel's plain
+    version (``ops/cuda_egnn.py``), which the CPU, float64 and training
+    take."""
+    n = h.shape[-2]
+    rel = coords.unsqueeze(-2) - coords.unsqueeze(-3)    # (..., N, N, fd)
+    rel = rel - 2 * math.pi * torch.round(rel / (2 * math.pi))
+    rel_feat = torch.cat([torch.sin(rel), torch.cos(rel)], dim=-1)
+    off_diagonal = 1.0 - torch.eye(n, dtype=h.dtype, device=h.device)
+    for layer in layers:
+        width = (*h.shape[:-1], n, h.shape[-1])
+        m_in = torch.cat([h.unsqueeze(-2).expand(width),
+                          h.unsqueeze(-3).expand(width), rel_feat], dim=-1)
+        m = F.silu(_linear(layer["msg"], m_in))
+        agg = torch.sum(m * off_diagonal.unsqueeze(-1), dim=-2)
+        h = h + F.silu(_linear(layer["upd"], torch.cat([h, agg], dim=-1)))
+    return h

@@ -25,6 +25,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from flowstate_tpu_torch.ops import card
+
 LAUNCHES = 0      # kernel launches in this process (one per call)
 
 MAX_BINS = 32     # a bin a lane of a warp
@@ -44,10 +46,6 @@ class _SplineParams(ctypes.Structure):
         (name, ctypes.c_double) for name in
         ("scale", "tail_bound", "min_bin_width", "min_bin_height",
          "min_derivative", "identity_derivative", "eps")]
-
-
-def on_card(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda"
 
 
 def tail_rule(tails: Union[str, Sequence[str]], dims: int, bins: int
@@ -178,7 +176,7 @@ def rq_spline_kernel(inputs: torch.Tensor, widths: torch.Tensor,
                           min_bin_width, min_bin_height, min_derivative, eps,
                           identity_derivative)
     tensors = (inputs, widths, heights, derivatives)
-    if not all(on_card(t) for t in tensors):
+    if not all(card.on_card(t) for t in tensors):
         raise ValueError("rq_spline_kernel takes CUDA tensors, got "
                          f"{inputs.device}; the plain spline takes CPU "
                          "tensors")

@@ -36,7 +36,7 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from flowstate_tpu_torch.ops import cuda_spline
+from flowstate_tpu_torch.ops import card, cuda_spline
 from flowstate_tpu_torch.utils.profiling import annotate
 
 DEFAULT_MIN_BIN_WIDTH = 1e-3
@@ -226,16 +226,6 @@ def unconstrained_rational_quadratic_spline(
         return outputs, logabsdet
 
 
-def _takes_kernel(*tensors: torch.Tensor) -> bool:
-    """The kernel's path: float32 tensors on the card and no gradient to
-    record."""
-    if not cuda_spline.on_card(tensors[0]) or any(
-            t.dtype != torch.float32 for t in tensors):
-        return False
-    return not (torch.is_grad_enabled()
-                and any(t.requires_grad for t in tensors))
-
-
 def unconstrained_rational_quadratic_spline_sum(
     inputs: torch.Tensor,
     unnormalized_widths: torch.Tensor,
@@ -259,7 +249,7 @@ def unconstrained_rational_quadratic_spline_sum(
     (a span ``flow.spline``); the rest take the plain composition."""
     params = (unnormalized_widths, unnormalized_heights,
               unnormalized_derivatives)
-    if _takes_kernel(inputs, *params):
+    if card.takes_kernel(inputs, *params):
         with annotate("flow.spline"):
             return cuda_spline.rq_spline_kernel(
                 inputs, *params, inverse=inverse, tails=tails,

@@ -35,7 +35,8 @@ The port's spans, where they open:
   conditioner (residual net, transformer, EGNN);
 * ``flow.gnn.messages``: ``flows/nets.TorusEGNN.apply``, inside
   ``flow.net``, the EGNN's message passing (its layers, without the
-  embedding, the mean and the output linear);
+  embedding, the mean and the output linear): the plain composition or,
+  on the card without autograd, the EGNN kernel's launch;
 * ``flow.spline``: ``ops/splines.unconstrained_rational_quadratic_spline``
   (the plain composition) and, on the card without autograd, the spline
   kernel's launch in ``unconstrained_rational_quadratic_spline_sum``;

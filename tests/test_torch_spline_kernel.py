@@ -29,7 +29,7 @@ from flowstate_tpu_torch.flows import (
 from flowstate_tpu_torch.flows.autoregressive import (
     MaskedPiecewiseRQSAutoregressive,
 )
-from flowstate_tpu_torch.ops import cuda_spline
+from flowstate_tpu_torch.ops import card, cuda_spline
 from flowstate_tpu_torch.ops import splines as tsplines
 
 torch.set_num_threads(1)
@@ -113,7 +113,7 @@ def on_model(monkeypatch):
         kernel_model(params, tensors)
         cuda_spline.LAUNCHES += 1
 
-    monkeypatch.setattr(cuda_spline, "on_card", lambda t: True)
+    monkeypatch.setattr(card, "on_card", lambda t: True)
     monkeypatch.setattr(cuda_spline, "_launch_on", launch_on)
 
 
