@@ -2,7 +2,9 @@
 couplings of width 16, 32 chains, 20 moves a round, at a temperature
 where the verdicts turn on log q), added as files and entries as
 ``standin.py`` adds the others, comes out correct when sound and not
-correct with the log q or the verdict's log q term altered; a chunk
+correct with the log q or the verdict's log q term altered; the real
+cell's flow, at its widths and with its weights' draw, keeps the
+program's float32 log q well inside the cell's limit; a chunk
 counts the messages ``gnn_messages_roofline`` requires; the message
 readers on a hand-written trace; the cell's driver and readers load
 without JAX."""
@@ -45,10 +47,8 @@ def gnn_root(tmp: str) -> str:
         json.dump({"driver": "gnn_rounds", "chains": 32,
                    "rounds_per_chunk": 2,
                    "check": {"chunks": 2, "k1_chains": 16, "block": 16}}, f)
-    # the other tiny round cells' limits: at this width the flow is well
-    # conditioned, as it is not at the cell's own (see PERF.md, section 4)
     with open(os.path.join(REPO, "benchmark", "limits",
-                           "a1_n3_round_c64k.json")) as f:
+                           "n8_gnn_round_c16k.json")) as f:
         limits = json.load(f)
     with open(os.path.join(bench, "limits", f"{CELL}.json"), "w") as f:
         json.dump(limits, f)
@@ -86,6 +86,53 @@ def test_a_fault_makes_the_run_not_correct(bench, fault):
     with faults.planted(fault, "cpu"):
         result = _run(bench, 4242)
     assert not result["correct"], result["checks"]
+
+
+@pytest.fixture(scope="module")
+def real_cell():
+    """The real gnn cell's configuration, traffic and ``logq_gap`` limit."""
+    real = Benchmark(REPO)
+    cell = real.cell("n8_gnn_round_c16k")
+    return (real.config(cell["config"]), real.traffic(cell["traffic"]),
+            real.limits("n8_gnn_round_c16k")["logq_gap"])
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_the_real_cells_flow_keeps_its_float32_log_q_gap_small(real_cell,
+                                                               seed):
+    """The cell's flow (K=15, hidden 64, 2 layers, 32 bins, N=8) with the
+    configuration's weights: the program's float32 log q of 256 samples,
+    from ``sample_and_log_prob`` and from ``log_prob``, within a quarter
+    of the cell's ``logq_gap`` limit of the reference's float64 log q, so
+    that a draw whose random flow amplifies float32 rounding fails here
+    before the card's check meets it on some seed."""
+    import torch
+
+    from benchmark import gnn_weights
+    from benchmark.drivers import common, rounds
+    from benchmark.reference import egnn as ref_egnn
+    from flowstate_tpu_torch.flows import build_circular_flow
+
+    config, traffic, limit = real_cell
+    f = config["flow"]
+    cfg = common.experiment_config(config, traffic, seed)
+    model = build_circular_flow(
+        cfg.num_particles, 2, cfg.half_box, K=f["K"],
+        hidden_units=f["hidden_units"], num_bins=f["num_bins"],
+        num_blocks=f["n_blocks"], net_type=f["net_type"], device="cpu")
+    weights = gnn_weights.make(f, config["init"], cfg.dim, seed, "cpu")
+    rounds.load_weights(model, weights)
+    g = torch.Generator()
+    g.manual_seed(seed)
+    with torch.no_grad():
+        x, logq_new = model.sample_and_log_prob(256, g)
+        logq_old = model.log_prob(x)
+        ref = ref_egnn.log_prob(
+            gnn_weights.tree_map(lambda t: t.double(), weights), x.double(),
+            cfg.half_box, f["hidden_units"], f["num_bins"]).numpy()
+    gap = max(common.max_gap(logq_new.numpy(), ref),
+              common.max_gap(logq_old.numpy(), ref))
+    assert gap <= limit / 4, (gap, limit)
 
 
 def test_the_residual_nets_bf16_is_refused(bench):
